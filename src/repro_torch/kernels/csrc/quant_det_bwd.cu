@@ -1,0 +1,85 @@
+// Straight-through backward of Q_det: gx and the scalar clip cotangent.
+//
+// Replaces the TPU kernel src/repro/kernels/fp8_quant.py::quant_det_bwd
+// (_quant_bwd_kernel). It runs at every QAT site of every local step,
+// backward:
+//
+//   gx      = g * 1{|x| <= a}
+//   g_alpha = sum g * (sign(x) * 1{|x| > a} + (q - y) * s / a)
+//
+// Bound: memory. Per element it reads x and g (8 bytes) and writes gx (4
+// bytes). The TPU kernel accumulated g_alpha in a (1, 1) block across its
+// sequential grid and zero-padded to whole tiles; here blocks run in no
+// order, so pass 1 writes one partial sum per block (fixed-order tree in
+// shared memory, ragged edge masked by the loop bound) and pass 2 reduces
+// the partials in one block. The grid size depends only on n, so the
+// result is deterministic without atomics.
+#include "fp8_common.cuh"
+
+__device__ __forceinline__ float block_sum(float v, float* sh) {
+  sh[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = fp8::kThreads / 2; w > 0; w >>= 1) {
+    if ((int)threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
+    __syncthreads();
+  }
+  return sh[0];
+}
+
+__global__ void quant_det_bwd_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ alpha,
+                                     const float* __restrict__ g,
+                                     float* __restrict__ gx,
+                                     float* __restrict__ partial, long long n,
+                                     fp8::Fmt f) {
+  __shared__ float sh[fp8::kThreads];
+  const float a = fmaxf(alpha[0], fp8::kAlphaFloor);
+  const float b = fp8::bias(a, f);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float acc = 0.0f;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float xi = x[i];
+    const float gi = g[i];
+    const float inside = fabsf(xi) <= a ? 1.0f : 0.0f;
+    const float xc = fp8::clip(xi, a);
+    const float s = fp8::scale(fp8::exponent(xc, b), b, f);
+    const float y = xc / s;
+    const float q = rintf(y);
+    gx[i] = gi * inside;
+    const float sg = xi > 0.0f ? 1.0f : (xi < 0.0f ? -1.0f : 0.0f);
+    acc += gi * (sg * (1.0f - inside) + (q - y) * s / a);
+  }
+  const float total = block_sum(acc, sh);
+  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+}
+
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    int n_parts, float* __restrict__ out) {
+  __shared__ float sh[fp8::kThreads];
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < n_parts; i += fp8::kThreads) acc += partial[i];
+  const float total = block_sum(acc, sh);
+  if (threadIdx.x == 0) out[0] = total;
+}
+
+// ``partial`` holds n_blocks floats; the wrapper sizes it with
+// repro_quant_det_bwd_blocks(n) so both sides agree on the grid.
+extern "C" int repro_quant_det_bwd_blocks(long long n) {
+  return fp8::grid_for(n) < 1024 ? fp8::grid_for(n) : 1024;
+}
+
+extern "C" int repro_quant_det_bwd(const float* x, const float* alpha,
+                                   const float* g, float* gx, float* partial,
+                                   float* galpha, long long n, int exp,
+                                   int mant, float mant_const,
+                                   cudaStream_t stream) {
+  const fp8::Fmt f{exp, mant, mant_const};
+  const int blocks = repro_quant_det_bwd_blocks(n);
+  quant_det_bwd_kernel<<<blocks, fp8::kThreads, 0, stream>>>(
+      x, alpha, g, gx, partial, n, f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials_kernel<<<1, fp8::kThreads, 0, stream>>>(partial, blocks, galpha);
+  return (int)cudaGetLastError();
+}

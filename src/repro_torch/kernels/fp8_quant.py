@@ -1,0 +1,266 @@
+"""Hand-written Hopper kernels for the FP8 hot path, their build and wrappers.
+
+The CUDA C++ sources under ``csrc/`` port four Pallas kernels of
+``repro.kernels.fp8_quant``, each wrapper here named after the Pallas
+kernel it replaces:
+
+* ``quant_det``        — ``csrc/quant_det.cu``
+* ``quant_det_bwd``    — ``csrc/quant_det_bwd.cu``
+* ``quant_pack_tiles`` — ``csrc/quant_pack.cu``
+* ``unpack_tiles``     — ``csrc/unpack.cu``
+
+Build: at first use, ``nvcc`` compiles every source for ``sm_90a`` at once
+(one process per source, started together), links one shared library with a
+plain C interface into ``build/repro_torch_kernels/`` at the repository root
+(git-ignored; named by a hash of the sources and flags, so an edit rebuilds),
+and ``ctypes`` loads it. Nothing is built or imported at module import.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current stream, raises if the C
+function returns a non-zero ``cudaGetLastError()``, and adds one to
+``LAUNCHES[name]``. A tensor on the CPU takes the kernel's plain twin in
+``kernels.ref`` instead (that is how the CPU tests run); any other device
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from . import ref
+from ..core.fp8 import E4M3, FP8Format
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("quant_det.cu", "quant_det_bwd.cu", "quant_pack.cu", "unpack.cu")
+HEADERS = ("fp8_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xcompiler", "-fPIC",
+)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+LANE = ref.LANE
+KERNELS = ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libfp8_quant_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile and link the kernels unless this exact build exists already.
+
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
+    (registers, shared memory, spills of each kernel).
+    """
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if verbose else ()
+    procs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / (Path(src).stem + f".{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in procs:
+        out, err = proc.communicate()
+        if verbose and (out or err):
+            print(f"[nvcc {src}]\n{out}{err}", end="")
+        if proc.returncode != 0:
+            failed.append(f"{src}: exit {proc.returncode}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         *(str(obj) for _, obj, _ in procs)],
+        capture_output=True, text=True,
+    )
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_float)
+        fmt_args = [i32, i32, f32]
+        lib.repro_quant_det.argtypes = [p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_det_bwd_blocks.argtypes = [i64]
+        lib.repro_quant_det_bwd.argtypes = [p, p, p, p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_pack_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
+        lib.repro_unpack_tiles.argtypes = [p, p, i32, p, i64, *fmt_args, p]
+        for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_blocks,
+                   lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
+                   lib.repro_unpack_tiles):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# wrapper plumbing
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    devs = {t.device.type for t in ts if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {devs}")
+    return False
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
+           shape: tuple | None = None) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_alpha_tiles(x2: torch.Tensor, a2: torch.Tensor) -> int:
+    if x2.dim() != 2 or x2.shape[1] != LANE:
+        raise ValueError(f"tiles must be (R, {LANE}), got {tuple(x2.shape)}")
+    if a2.dim() != 2 or a2.shape[0] != x2.shape[0] or a2.shape[1] not in (1, LANE):
+        raise ValueError(f"alpha must be (R, 1) or (R, {LANE}), got {tuple(a2.shape)}")
+    _check(a2, "alpha", torch.float32)
+    return int(a2.shape[1])
+
+
+def _fmt_args(fmt: FP8Format):
+    return fmt.exp, fmt.mant, fmt.mant_const
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _launched(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# the four kernels
+# ---------------------------------------------------------------------------
+
+
+def quant_det(x: torch.Tensor, alpha: torch.Tensor,
+              fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Q_det fake-quant of any-shape f32 ``x`` with a one-element ``alpha``."""
+    if _on_cpu(x, alpha):
+        return ref.quant_det(x, alpha, fmt)
+    _check(x, "x", torch.float32)
+    _check(alpha, "alpha", torch.float32)
+    if alpha.numel() != 1:
+        raise ValueError(f"alpha must hold one value, got shape {tuple(alpha.shape)}")
+    out = torch.empty_like(x)
+    rc = load().repro_quant_det(x.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+                                x.numel(), *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_det")
+    return out
+
+
+def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
+                  fmt: FP8Format = E4M3):
+    """STE backward of :func:`quant_det`: ``(gx, g_alpha)``, g_alpha 0-dim."""
+    if _on_cpu(x, alpha, g):
+        return ref.quant_det_bwd(x, alpha, g, fmt)
+    _check(x, "x", torch.float32)
+    _check(g, "g", torch.float32, tuple(x.shape))
+    _check(alpha, "alpha", torch.float32)
+    if alpha.numel() != 1:
+        raise ValueError(f"alpha must hold one value, got shape {tuple(alpha.shape)}")
+    lib = load()
+    gx = torch.empty_like(x)
+    partial = torch.empty(lib.repro_quant_det_bwd_blocks(x.numel()),
+                          dtype=torch.float32, device=x.device)
+    ga = torch.empty((), dtype=torch.float32, device=x.device)
+    rc = lib.repro_quant_det_bwd(
+        x.data_ptr(), alpha.data_ptr(), g.data_ptr(), gx.data_ptr(),
+        partial.data_ptr(), ga.data_ptr(), x.numel(), *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_det_bwd")
+    return gx, ga
+
+
+def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                     key2: torch.Tensor | None = None,
+                     fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Quantize + pack ``(R, 1024)`` f32 tiles to u8 codes; ``key2`` is a
+    ``(2,)`` u32 key for stochastic rounding, None for deterministic."""
+    if _on_cpu(x2, a2, key2):
+        return ref.quant_pack_tiles(x2, a2, key2, fmt)
+    _check(x2, "x2", torch.float32)
+    a_cols = _check_alpha_tiles(x2, a2)
+    if key2 is not None:
+        _check(key2, "key2", torch.uint32, (2,))
+    out = torch.empty(x2.shape, dtype=torch.uint8, device=x2.device)
+    rc = load().repro_quant_pack_tiles(
+        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), out.data_ptr(),
+        x2.numel(), *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_pack_tiles")
+    return out
+
+
+def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
+                 fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Decode ``(R, 1024)`` u8 codes to f32 grid values."""
+    if _on_cpu(c2, a2):
+        return ref.unpack_tiles(c2, a2, fmt)
+    _check(c2, "c2", torch.uint8)
+    a_cols = _check_alpha_tiles(c2, a2)
+    out = torch.empty(c2.shape, dtype=torch.float32, device=c2.device)
+    rc = load().repro_unpack_tiles(c2.data_ptr(), a2.data_ptr(), a_cols,
+                                   out.data_ptr(), c2.numel(), *_fmt_args(fmt),
+                                   _stream())
+    _launched(rc, "unpack_tiles")
+    return out

@@ -1,0 +1,155 @@
+"""Plain PyTorch twins of the hand-written CUDA kernels.
+
+Each function here repeats, op for op, the arithmetic of one kernel body in
+``repro.kernels.fp8_quant`` (and of its CUDA port under ``csrc/``). The
+wrappers in ``kernels.fp8_quant`` take a twin only for a tensor that lies on
+the CPU; on the card ``chip_smoke.py`` compares each kernel with its twin on
+the same inputs.
+
+f32 throughout; the exponent bias is evaluated left to right as the kernels
+do: ``((2^e - log2(a)) + log2(2 - 2^-m)) - 1``. ``torch.round`` rounds half to
+even like ``jnp.round`` (and CUDA's ``rintf``).
+
+The counter RNG (murmur3 finalizer over the element index and two u32 key
+words) runs in int64 masked to 32 bits after every step: torch's CPU backend
+has no uint32 multiply. Each 32x32-bit product is split into two 16-bit
+halves of the constant so no intermediate exceeds 2^49.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.fp8 import _ALPHA_FLOOR, E4M3, FP8Format
+
+LANE = 1024        # lane width of the (rows, LANE) wire tile layout
+_M32 = 0xFFFFFFFF
+_INV_2_32 = 1.0 / 4294967296.0
+
+
+def _bias(a: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
+    return 2.0 ** fmt.exp - torch.log2(a) + fmt.mant_const - 1.0
+
+
+def _clip(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(torch.maximum(x, -a), a)
+
+
+def _scale_p(xc: torch.Tensor, b: torch.Tensor, fmt: FP8Format,
+             saturate: bool = False):
+    p = torch.floor(torch.log2(torch.abs(xc)) + b)
+    p = torch.where(p > 1.0, p, 1.0)
+    if saturate:
+        p = torch.clamp(p, max=float(fmt.max_exp_code))
+    return p, torch.exp2(p - b - fmt.mant)
+
+
+def quant_det(x: torch.Tensor, alpha: torch.Tensor,
+              fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_quant_det_kernel``: Q_det with a per-tensor scalar alpha."""
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    b = _bias(a, fmt)
+    xc = _clip(x, a)
+    _, s = _scale_p(xc, b, fmt)
+    return s * torch.round(xc / s)
+
+
+def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
+                  fmt: FP8Format = E4M3):
+    """Twin of ``_quant_bwd_kernel``: ``(gx, g_alpha)`` of the STE backward.
+
+    ``gx = g * 1{|x| <= a}`` and the scalar
+    ``g_alpha = sum g * (sign(x) * 1{|x| > a} + (q - y) * s / a)``.
+    """
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    b = _bias(a, fmt)
+    inside = (torch.abs(x) <= a).to(torch.float32)
+    xc = _clip(x, a)
+    _, s = _scale_p(xc, b, fmt)
+    y = xc / s
+    q = torch.round(y)
+    gx = g * inside
+    ga = torch.sum(g * (torch.sign(x) * (1.0 - inside) + (q - y) * s / a))
+    return gx, ga
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``(h * c) mod 2^32`` for 0 <= h, c < 2^32 without int64 overflow."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def counter_bits(idx: torch.Tensor, k0: int | torch.Tensor,
+                 k1: int | torch.Tensor) -> torch.Tensor:
+    """Per-element u32 (held in int64) from a counter and two u32 key words."""
+    return _fmix32(_fmix32((idx & _M32) ^ k0) ^ k1)
+
+
+def tile_counter_bits(shape: tuple[int, int], key2: torch.Tensor) -> torch.Tensor:
+    """counter_bits over a whole ``(rows, LANE)`` tile buffer: the global
+    element index ``row * LANE + col`` mixed with the two key words."""
+    k = key2.to(torch.int64)
+    idx = torch.arange(shape[0] * shape[1], dtype=torch.int64,
+                       device=key2.device).reshape(shape)
+    return counter_bits(idx, k[0], k[1])
+
+
+def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                     key2: torch.Tensor | None = None,
+                     fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_quant_pack_det_kernel`` / ``_quant_pack_rand_ctr_kernel``
+    with ``_pack_code``: ``(R, LANE)`` f32 -> ``(R, LANE)`` u8 codes.
+
+    ``a2`` is ``(R, 1)`` or ``(R, LANE)`` (already floored by the caller);
+    ``key2`` a ``(2,)`` u32 tensor for stochastic rounding, None for det.
+    """
+    a = a2.to(torch.float32)
+    b = _bias(a, fmt)
+    xc = _clip(x2, a)
+    p, s = _scale_p(xc, b, fmt, saturate=True)
+    y = xc / s
+    if key2 is None:
+        v_signed = torch.round(y)
+    else:
+        bits = tile_counter_bits(tuple(x2.shape), key2)
+        u = bits.to(torch.float32) * _INV_2_32
+        fl = torch.floor(y)
+        v_signed = fl + (u < (y - fl)).to(torch.float32)
+    sign = (v_signed < 0).to(torch.int32)
+    v = torch.abs(v_signed).to(torch.int32)
+    top = 2 ** (fmt.mant + 1)
+    overflow = v >= top
+    at_max = p >= float(fmt.max_exp_code)
+    v = torch.where(overflow & at_max, top - 1,
+                    torch.where(overflow, v // 2, v))
+    p = torch.where(overflow & ~at_max, p + 1.0, p)
+    is_normal = v >= 2 ** fmt.mant
+    f = torch.where(is_normal, p.to(torch.int32), 0)
+    m_field = torch.where(is_normal, v - 2 ** fmt.mant, v)
+    code = (sign << (fmt.exp + fmt.mant)) | (f << fmt.mant) | m_field
+    return code.to(torch.uint8)
+
+
+def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
+                 fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_unpack_kernel`` / ``_decode_codes``: u8 codes -> f32 grid values."""
+    code = c2.to(torch.int32)
+    a = a2.to(torch.float32)
+    b = _bias(a, fmt)
+    sign = (code >> (fmt.exp + fmt.mant)) & 0x1
+    f = (code >> fmt.mant) & (2 ** fmt.exp - 1)
+    m_field = code & (2 ** fmt.mant - 1)
+    is_normal = f >= 1
+    v = torch.where(is_normal, m_field + 2 ** fmt.mant, m_field)
+    p_eff = torch.where(is_normal, f, 1)
+    s = torch.exp2(p_eff.to(torch.float32) - b - fmt.mant)
+    mag = v.to(torch.float32) * s
+    return torch.where(sign == 1, -mag, mag)

@@ -19,6 +19,9 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when torch sees none"
+    )
 
 
 @pytest.fixture(scope="session")
