@@ -7,27 +7,50 @@ Phases, each fatal on failure (the script then exits non-zero):
 
 1. set-up: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``); turns TF32 off for matmuls and cuDNN
-   convolutions; builds the four CUDA kernels from ``src/repro_torch/
-   kernels/csrc`` (``nvcc``, at first use) and prints the build time.
-2. each kernel against its plain PyTorch twin on the card, at LeNet's wire
-   shape (135, 1024), a multi-block ragged (8191, 1024), every QAT site
-   shape of LeNet at batch 32 (random inputs), and LeNet's init weights and
-   a batch of images at their own clip values; bitwise, with at most 1e-5
-   of elements allowed to differ (adjacent-grid ties) and the scalar clip
-   cotangent at relative 1e-5. Prints each kernel's median time (CUDA
-   events) beside its plain twin's and its bound (bytes over 3.35 TB/s, or
-   operations over the card's f32 rate, whichever is larger).
+   convolutions; builds the seven CUDA kernels from ``src/repro_torch/
+   kernels/csrc`` (``nvcc``, one process per source, at first use) and
+   prints the build time.
+2. each kernel against its plain PyTorch twin on the card, at the shapes
+   of every path driven below (the three Table 1 models: cifar10-lenet,
+   cifar100-mlp, speech-kwt): the QAT pair at every QAT site shape of each
+   model at batch 32 (random inputs; ``ACT_SHAPES`` and the weights), on
+   each model's init weights and a batch of its data at their own clip
+   values, and at a multi-block ragged (8191, 1024); the wire pair and
+   ``fake_quant_tiles`` (det and counter-RNG, alpha as a column and per
+   element) on random tiles at each model's plane/wire shape and at
+   (8191, 1024), and on each model's real plane (its init weights with
+   their own alpha column), ``fake_quant_tiles`` also against the wire's
+   encode -> decode (1 f32 ULP); the ``quant_rand`` pair at every model's
+   weights, every MLP weight shape and (8191, 1024). Bitwise (the PR 11
+   kernels with at most 1e-5 of elements allowed to differ, adjacent-grid
+   ties), and each scalar clip cotangent at relative 1e-5 with a
+   cotangent signed like x. Prints each kernel's
+   median time (CUDA events) beside its plain twin's and its bound (bytes
+   over 3.35 TB/s, or operations over the card's f32 rate, the larger).
 3. the card against the CPU twins: one small federated round with the same
-   draws (``round_phase``; MLP, LeNet with weight QAT, LeNet with full
-   QAT): exact bytes, params and loss within the tolerances stated there.
-4. the main path: ``FedSim`` on cifar10-lenet (full-width LeNet), method uq,
-   K=10, C=0.3 (P=3), 10 local steps at batch 32, 3000 train / 800 test
-   examples, 3 rounds with eval at the end. Every kernel's launch counter
-   is zeroed just before and read just after; each must be > 0.
-   ``bytes_per_round`` must be 826860 and the loss finite.
+   draws (``round_phase``; MLP uq, LeNet with weight QAT, LeNet with full
+   QAT, MLP uq+, MLP rand-qat): exact bytes, params and loss within the
+   tolerances stated there.
+4. the main paths, each driven with every launch counter zeroed just
+   before and read just after: ``FedSim`` on cifar10-lenet (full-width
+   LeNet) at the Table 1 driver's CPU-budget scale (K=10, C=0.3 (P=3), 10
+   local steps at batch 32, 3000 train / 800 test examples), 3 rounds with
+   eval at the end, for method uq (the four PR 11 kernels must launch) and
+   method uq+ (five kernels; ``fake_quant_tiles`` exactly 25 times a round:
+   5 GD steps + 20 grid points). ``bytes_per_round`` must be 826860 and the
+   loss finite. The uq+ server step alone is timed, and one more round of
+   each path is profiled.
+5. the method grid: ``repro_torch.bench.table1`` on cifar10-lenet,
+   cifar100-mlp and speech-kwt, iid and Dir(0.3), fp32/uq/uq+, at the
+   reference driver's CPU-budget scale (20 rounds, eval every 5); every
+   ``bytes_per_round`` must be the reference's integer.
+   Then the rand-qat / rand-qat-only cells of ``repro_torch.bench.table2``
+   on cifar100-mlp at its default scale: the stochastic-QAT path, driven
+   with the counters zeroed, where both ``quant_rand`` kernels must launch.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with one entry per kernel (its
+launches counted on the path that runs it); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,7 +67,26 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TIE_FRAC = 1e-5
+GA_RTOL = 1e-5                  # scalar clip cotangent, kernel vs twin
 SLICE_ROUND_BYTES = 826860      # 3 clients x 2 legs x 137810-byte payloads
+UQP_LAUNCHES_PER_ROUND = 25     # fake_quant_tiles: 5 GD steps + 20 grid points
+# the reference's bytes per round (benchmarks/common.py at K=10, C=0.3 for
+# Table 1 and K=12, C=0.3 for Table 2)
+GRID_BYTES = {
+    ("cifar10-lenet", "fp32"): 3286560, ("cifar10-lenet", "uq"): 826860,
+    ("cifar10-lenet", "uq+"): 826860, ("cifar100-mlp", "fp32"): 355824,
+    ("cifar100-mlp", "uq"): 93168, ("cifar100-mlp", "uq+"): 93168,
+    ("speech-kwt", "fp32"): 2606376, ("speech-kwt", "uq"): 722856,
+    ("speech-kwt", "uq+"): 722856,
+}
+TABLE2_BYTES = {"rand-qat": 124224, "rand-qat-only": 474432}
+GRID_ROUNDS, GRID_EVAL_EVERY = 20, 5    # the reference driver's CPU-budget scale
+KERNEL_INFO = {   # name: (source under csrc/, line of the TPU kernel in fp8_quant.py)
+    "quant_det": ("quant_det.cu", 92), "quant_det_bwd": ("quant_det_bwd.cu", 198),
+    "quant_pack_tiles": ("quant_pack.cu", 614), "unpack_tiles": ("unpack.cu", 1036),
+    "fake_quant_tiles": ("fake_quant.cu", 455), "quant_rand": ("quant_rand.cu", 115),
+    "quant_rand_bwd": ("quant_rand.cu", 231),
+}
 
 
 def synchronize() -> None:
@@ -96,35 +138,68 @@ def mismatches(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
 # ---------------------------------------------------------------------------
 
 
+# QAT site input shapes at batch 32 of each Table 1 task's model, in call
+# order (the weight sites are read from the params): LeNet's conv/dense
+# inputs; cifar100-mlp's (d_in 64, hidden 64, so every site takes (32, 64));
+# KWT's embed input (B, T, F), its per-layer qkv / proj / fc1 inputs over the
+# T+1 tokens, its fc2 input (4 d_model wide) and the head's class token
+ACT_SHAPES = {
+    "cifar10-lenet": [(32, 32, 32, 3), (32, 16, 16, 6), (32, 1024), (32, 120), (32, 84)],
+    "cifar100-mlp": [(32, 64)],
+    "speech-kwt": [(32, 32, 64), (32, 33, 64), (32, 33, 256), (32, 64)],
+}
+LARGE = (8191, 1024)    # a multi-block ragged shape
+
+
 def kernel_phase(dev) -> dict:
-    from repro_torch.data import synthetic_images
+    from repro_torch import tree
+    from repro_torch.bench import common
+    from repro_torch.core import plane, wire
     from repro_torch.kernels import fp8_quant as K
     from repro_torch.kernels import ref as R
-    from repro_torch.models import small
 
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def randn(shape, scale):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
-    key = torch.tensor([0x9E3779B9, 0x7F4A7C15], dtype=torch.int64).to(torch.uint32).to(dev)
-    # every QAT site shape of LeNet at batch 32 (activations, then weights),
-    # the wire tiles, and a multi-block ragged shape
-    site_shapes = [(32, 32, 32, 3), (32, 16, 16, 6), (32, 1024), (32, 120), (32, 84),
-                   (5, 5, 3, 6), (5, 5, 6, 16), (1024, 120), (120, 84), (84, 10)]
-    tile_shapes = [(135, 1024), (8191, 1024)]
-    cases = [("random", randn(s, 0.3), None) for s in site_shapes + tile_shapes]
-    # real site inputs: LeNet's init weights at alpha = max|w| (one element
-    # on the clip boundary) and a batch of images at the init beta
-    params = small.init_lenet(0, device=dev)
-    for layer in ("conv1", "conv2", "fc1", "fc2", "head"):
-        p = params[layer]
-        cases.append((f"lenet {layer}.w", p["w"], p["w_qa"]))
-    images = torch.from_numpy(synthetic_images(1, 32, n_classes=10, noise=0.45)[0]).to(dev)
-    cases.append(("images", images, params["conv1"]["x_qb"]))
-    worst = {k: 0.0 for k in K.KERNELS}
+    def rbits(shape):
+        return torch.randint(0, 2 ** 32, shape, generator=g, dtype=torch.int64).to(
+            torch.int32).view(torch.uint32).to(dev)
 
-    for label, x, a in cases:
+    key = torch.tensor([0x9E3779B9, 0x7F4A7C15], dtype=torch.int64).to(torch.uint32).to(dev)
+    worst = {k: 0.0 for k in K.KERNELS}
+    # per task: the QAT pair's cases (random inputs at every site shape, the
+    # init weights at their own alpha = max|w|, one element on the clip
+    # boundary, and a batch of the task's data at the first site's init
+    # beta), the quant_rand pair's weight cases, and the real tiled plane
+    # (the UQ+ plane, which is also the wire's tiles) with its alpha column
+    qat_cases, rand_cases, planes = [], [], []
+    for task_name, acts in ACT_SHAPES.items():
+        task = common.TASKS[task_name]
+        params, _ = common.make_model(task, 0, dev)
+        flat = dict(tree.flatten(params))
+        weights = [(name, w, flat[name + "_qa"]) for name, w in flat.items()
+                   if name.endswith(".w") and name + "_qa" in flat]
+        for s in acts + [tuple(w.shape) for _, w, _ in weights]:
+            qat_cases.append((f"{task_name} random", randn(s, 0.3), None))
+        for name, w, a in weights:
+            qat_cases.append((f"{task_name} {name}", w, a))
+            rand_cases.append((f"{task_name} {name}", w, a))
+        data = torch.from_numpy(common.make_data(task, 32, 1)[0][0]).to(dev)
+        first = next(v for v in params.values() if isinstance(v, dict) and "x_qb" in v)
+        qat_cases.append((f"{task_name} data", data, first["x_qb"]))
+        spec, wspec = plane.make_plane_spec(params), wire.make_wire_spec(params)
+        # scalar alphas: the wire's tiles and (R, 1) column are the plane's
+        check(wspec.alpha_cols_ok and wspec.n_rows == spec.n_rows
+              and wspec.q_names == spec.q_names, f"{task_name}: wire tiles != plane")
+        w2, alphas = plane.pack_tiles(params, spec)
+        planes.append((f"{task_name} plane", w2, plane.alpha_column(alphas, spec)))
+        print(f"[kernels] {task_name}: {len(weights)} weight sites, activation shapes "
+              f"{acts}, plane/wire tiles {tuple(w2.shape)} in {spec.n_seg} segments")
+    qat_cases.append(("random", randn(LARGE, 0.3), None))
+
+    for label, x, a in qat_cases:
         # cotangent with the sign of x: the clipped terms of g_alpha then add
         # up instead of cancelling, so relative error measures the kernel
         shape = tuple(x.shape)
@@ -133,48 +208,91 @@ def kernel_phase(dev) -> dict:
         n = x.numel()
         bad, err = mismatches(K.quant_det(x, a), R.quant_det(x, a))
         worst["quant_det"] = max(worst["quant_det"], err)
-        check(bad <= TIE_FRAC * n, f"quant_det {label}: {bad} of {n} differ")
+        check(bad <= TIE_FRAC * n, f"quant_det {label} {shape}: {bad} of {n} differ")
         gx, ga = K.quant_det_bwd(x, a, gr)
         rgx, rga = R.quant_det_bwd(x, a, gr)
         bad, err = mismatches(gx, rgx)
         rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
         worst["quant_det_bwd"] = max(worst["quant_det_bwd"], err,
                                      abs(float(ga) - float(rga)))
-        check(bad == 0, f"quant_det_bwd gx {label}: {bad} of {n} differ")
-        check(rel <= 1e-5, f"quant_det_bwd g_alpha {label}: rel err {rel:.3g}")
+        check(bad == 0, f"quant_det_bwd gx {label} {shape}: {bad} of {n} differ")
+        check(rel <= GA_RTOL, f"quant_det_bwd g_alpha {label} {shape}: rel err {rel:.3g}")
         print(f"[kernels] quant_det/bwd {label} {shape}: g_alpha kernel {float(ga):.9g} "
               f"twin {float(rga):.9g} rel {rel:.3g}")
 
-    for shape in tile_shapes:
+    # the tile kernels: random tiles at every task's plane/wire shape and at
+    # the large shape (alpha a row-max column), then each task's real plane
+    # with its own alpha column; alpha also per element, det and counter-RNG.
+    # The wire pair within the PR 11 tie budget; fake_quant_tiles (B5)
+    # bitwise against its twin and within 1 f32 ULP of encode -> decode.
+    tile_cases = []
+    for shape in [tuple(w2.shape) for _, w2, _ in planes] + [LARGE]:
         x = randn(shape, 0.2)
-        col = x.abs().amax(dim=1, keepdim=True) * 0.9
-        for a2 in (col, col.expand(shape).contiguous()):
+        tile_cases.append(("random", x, x.abs().amax(dim=1, keepdim=True) * 0.9))
+    tile_cases += planes
+    for label, x, col in tile_cases:
+        for a2 in (col, col.expand(x.shape).contiguous()):
             for k2 in (None, key):
+                lab = f"{label} a{tuple(a2.shape)} {'rand' if k2 is not None else 'det'}"
                 c = K.quant_pack_tiles(x, a2, k2)
-                rc = R.quant_pack_tiles(x, a2, k2)
-                bad, err = mismatches(c, rc)
+                bad, err = mismatches(c, R.quant_pack_tiles(x, a2, k2))
                 worst["quant_pack_tiles"] = max(worst["quant_pack_tiles"], err)
-                check(bad <= TIE_FRAC * c.numel(),
-                      f"quant_pack_tiles {shape} a{tuple(a2.shape)} "
-                      f"{'rand' if k2 is not None else 'det'}: {bad} codes differ")
-                bad, err = mismatches(K.unpack_tiles(c, a2), R.unpack_tiles(c, a2))
+                check(bad <= TIE_FRAC * c.numel(), f"quant_pack_tiles {lab}: {bad} codes differ")
+                wire_vals = K.unpack_tiles(c, a2)
+                bad, err = mismatches(wire_vals, R.unpack_tiles(c, a2))
                 worst["unpack_tiles"] = max(worst["unpack_tiles"], err)
-                check(bad <= TIE_FRAC * c.numel(),
-                      f"unpack_tiles {shape}: {bad} values differ")
+                check(bad <= TIE_FRAC * c.numel(), f"unpack_tiles {lab}: {bad} values differ")
+                q = K.fake_quant_tiles(x, a2, k2)
+                bad, err = mismatches(q, R.fake_quant_tiles(x, a2, k2))
+                worst["fake_quant_tiles"] = max(worst["fake_quant_tiles"], err)
+                check(bad == 0, f"fake_quant_tiles {lab}: {bad} values differ")
+                aw = wire_vals.abs()
+                ulp = torch.nextafter(aw, torch.full_like(aw, math.inf)) - aw
+                check(bool(((q - wire_vals).abs() <= ulp).all()),
+                      f"fake_quant_tiles {lab}: not within 1 ULP of the wire transit")
+        print(f"[kernels] tile kernels {label} {tuple(x.shape)}: det and rand, "
+              f"alpha column and per element: ok")
+
+    # the quant_rand pair (B6): every task's init weights at their own alpha,
+    # random inputs at every MLP weight shape (cifar100-mlp, and the d_in 32
+    # MLP of the card-vs-CPU rounds) and at the large shape
+    rand_cases += [("random", randn(s, 0.3), None)
+                   for s in ((32, 64), (64, 64), (64, 10), (64, 100), LARGE)]
+    for label, x, a in rand_cases:
+        shape = tuple(x.shape)
+        bits = rbits(shape)
+        gr = randn(shape, 1.0).abs() * torch.sign(x)
+        a = x.abs().max() * 0.8 if a is None else a
+        bad, err = mismatches(K.quant_rand(x, a, bits), R.quant_rand(x, a, bits))
+        worst["quant_rand"] = max(worst["quant_rand"], err)
+        check(bad == 0, f"quant_rand {label} {shape}: {bad} differ")
+        gx, ga = K.quant_rand_bwd(x, a, bits, gr)
+        rgx, rga = R.quant_rand_bwd(x, a, bits, gr)
+        bad, err = mismatches(gx, rgx)
+        rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
+        worst["quant_rand_bwd"] = max(worst["quant_rand_bwd"], err,
+                                      abs(float(ga) - float(rga)))
+        check(bad == 0, f"quant_rand_bwd gx {label} {shape}: {bad} differ")
+        check(rel <= GA_RTOL, f"quant_rand_bwd g_alpha {label} {shape}: rel err {rel:.3g}")
+        print(f"[kernels] quant_rand/bwd {label} {shape}: g_alpha kernel {float(ga):.9g} "
+              f"twin {float(rga):.9g} rel {rel:.3g}")
     print(f"[kernels] all kernels within bound; max abs err {worst}")
     synchronize()
 
-    # --- times at the main path's shapes, and at a large ragged shape ----
+    # --- times at the main paths' shapes, and at a large ragged shape ----
     timings = {}
     for label, shape in (("main", None), ("large", (8191, 1024))):
         act = shape or (32, 32, 32, 3)       # largest QAT site (conv1 input)
-        tile = shape or (135, 1024)          # LeNet's wire tiles
+        tile = shape or (135, 1024)          # LeNet's wire tiles / UQ+ plane
+        wshape = shape or (64, 100)          # largest rand-qat weight (cifar100-mlp)
         x, gr = randn(act, 0.3), randn(act, 1.0)
         a = x.abs().max() * 0.8
         xt = randn(tile, 0.2)
         col = xt.abs().amax(dim=1, keepdim=True) * 0.9
         codes = K.quant_pack_tiles(xt, col, key)
-        n, nt, rows = x.numel(), xt.numel(), tile[0]
+        xw, gw, bw = randn(wshape, 0.3), randn(wshape, 1.0), rbits(wshape)
+        aw = xw.abs().max() * 0.8
+        n, nt, rows, nw = x.numel(), xt.numel(), tile[0], xw.numel()
         cases = {
             "quant_det": (lambda: K.quant_det(x, a), lambda: R.quant_det(x, a),
                           8 * n + 4, 12 * n, act),
@@ -187,6 +305,15 @@ def kernel_phase(dev) -> dict:
             "unpack_tiles": (lambda: K.unpack_tiles(codes, col),
                              lambda: R.unpack_tiles(codes, col),
                              5 * nt + 4 * rows, 12 * nt, tile),
+            "fake_quant_tiles": (lambda: K.fake_quant_tiles(xt, col, key),
+                                 lambda: R.fake_quant_tiles(xt, col, key),
+                                 8 * nt + 4 * rows + 8, 40 * nt, tile),
+            "quant_rand": (lambda: K.quant_rand(xw, aw, bw),
+                           lambda: R.quant_rand(xw, aw, bw),
+                           12 * nw + 4, 14 * nw, wshape),
+            "quant_rand_bwd": (lambda: K.quant_rand_bwd(xw, aw, bw, gw),
+                               lambda: R.quant_rand_bwd(xw, aw, bw, gw),
+                               16 * nw + 8, 22 * nw, wshape),
         }
         for name, (kern, twin, n_bytes, n_ops, shp) in cases.items():
             ms, plain_ms = time_ms(kern), time_ms(twin, reps=5, iters=10)
@@ -204,7 +331,7 @@ def kernel_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _small_round(model: str, device: str, draws, qcfg):
+def _small_round(model: str, device: str, draws, qcfg, **cfg_kw):
     from repro_torch import optim
     from repro_torch.core.engine import FedConfig
     from repro_torch.core.fedsim import FedSim
@@ -222,7 +349,7 @@ def _small_round(model: str, device: str, draws, qcfg):
     opt = optim.sgd(0.05, weight_decay=1e-3, wd_mask=weight_decay_mask(p),
                     trust_mask=clip_value_mask(p))
     cfg = FedConfig(n_clients=4, participation=0.5, local_steps=3, batch_size=8,
-                    qat=qcfg)
+                    qat=qcfg, **cfg_kw)
     sim = FedSim(p, small.make_loss(apply), apply, opt, cfg, cx, cy, nk, device=device)
     if draws is None:
         draws = [sim.engine.draw(torch.Generator().manual_seed(11), sim.nk.cpu(),
@@ -232,27 +359,33 @@ def _small_round(model: str, device: str, draws, qcfg):
 
 
 def round_phase(dev) -> None:
-    """One small uq round on the card against the same round on the CPU
-    twins, with the same draws; bytes must be equal. Held to the CPU parity
-    tests' tolerance (loss rtol 1e-5, all but 1e-3 of the params within
-    1e-5 + 1e-4|ref|): the MLP, and LeNet with weight QAT and the wire but
-    no activation quantizers, so that the full conv + weight-QAT + wire
-    round is checked tightly. LeNet with activation quantizers is held
-    loosely: cuDNN's f32 convolutions differ from the CPU's in the last
-    bits, an activation quantizer turns that into another grid point, and
-    that moves every later site's input, the step's loss by ~1% and every
-    later gradient. There the loss is held to rtol 2e-2 and each quantized
-    weight to one top-bin grid step (alpha / 15), the size of a wrong
-    code; the count beyond the strict tolerance is printed."""
+    """One small round on the card against the same round on the CPU twins,
+    with the same draws (cohort, batches, wire keys, and for uq+ the server's
+    GD and grid keys, for rand-qat the counter keys of every weight site's
+    bits); bytes must be equal. Held to the CPU parity tests' tolerance (loss
+    rtol 1e-5, all but 1e-3 of the params within 1e-5 + 1e-4|ref|): the MLP
+    (uq, uq+ and rand-qat), and LeNet with weight QAT and the wire but no
+    activation quantizers, so that the full conv + weight-QAT + wire round
+    is checked tightly. LeNet with activation quantizers is held loosely:
+    cuDNN's f32 convolutions differ from the CPU's in the last bits, an
+    activation quantizer turns that into another grid point, and that moves
+    every later site's input, the step's loss by ~1% and every later
+    gradient. There the loss is held to rtol 2e-2 and each quantized weight
+    to one top-bin grid step (alpha / 15), the size of a wrong code; the
+    count beyond the strict tolerance is printed."""
     from repro_torch import tree
     from repro_torch.core.qat import QATConfig
+    from repro_torch.core.server_opt import ServerOptConfig
 
-    for model, qcfg, strict in (("mlp", QATConfig(), True),
-                                ("lenet", QATConfig(quantize_acts=False), True),
-                                ("lenet", QATConfig(), False)):
-        label = f"{model} {'weight QAT' if not qcfg.quantize_acts else 'full QAT'}"
-        cpu_sim, cpu_hist, draws = _small_round(model, "cpu", None, qcfg)
-        gpu_sim, gpu_hist, _ = _small_round(model, dev, draws, qcfg)
+    uqp = dict(server_opt=ServerOptConfig(enabled=True, gd_steps=5, lr=0.1, n_grid=20))
+    for model, label, qcfg, strict, kw in (
+            ("mlp", "mlp uq", QATConfig(), True, {}),
+            ("lenet", "lenet weight QAT", QATConfig(quantize_acts=False), True, {}),
+            ("lenet", "lenet full QAT", QATConfig(), False, {}),
+            ("mlp", "mlp uq+", QATConfig(), True, uqp),
+            ("mlp", "mlp rand-qat", QATConfig(mode="rand"), True, {})):
+        cpu_sim, cpu_hist, draws = _small_round(model, "cpu", None, qcfg, **kw)
+        gpu_sim, gpu_hist, _ = _small_round(model, dev, draws, qcfg, **kw)
         ref = dict(tree.flatten(cpu_sim.params))
         n_bad = n_all = 0
         step_ok = True
@@ -277,32 +410,45 @@ def round_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
 
+PATH_KERNELS = {
+    "uq": ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles"),
+    "uq+": ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles",
+            "fake_quant_tiles"),
+}
 
-def main_path_phase(dev) -> dict:
-    from repro_torch import optim
-    from repro_torch.core.engine import FedConfig
+
+def _make_sim(dev, task_name: str, method: str, sc: dict):
+    """A ``FedSim`` for ``method`` on ``task_name`` built from the bench
+    drivers' pieces (``repro_torch.bench.common``) at scale ``sc``; returns
+    the simulator, its config and the test split."""
+    from repro_torch.bench import common
     from repro_torch.core.fedsim import FedSim
-    from repro_torch.core.qat import QATConfig, clip_value_mask, weight_decay_mask
-    from repro_torch.data import partition_iid, synthetic_images
-    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.data import partition_iid
     from repro_torch.models import small
 
-    n_train, n_test, rounds = 3000, 800, 3
-    x, y = synthetic_images(0, n_train + n_test, n_classes=10, noise=0.45)
-    cx, cy, nk = partition_iid(x[:n_train], y[:n_train], k=10, seed=0)
-    xt, yt = x[n_train:], y[n_train:]
-    params = small.init_lenet(0, device=dev)
-    opt = optim.sgd(0.05, weight_decay=1e-3, wd_mask=weight_decay_mask(params),
-                    trust_mask=clip_value_mask(params))
-    cfg = FedConfig(n_clients=10, participation=0.3, local_steps=10, batch_size=32,
-                    comm_mode="rand", qat=QATConfig())
-    sim = FedSim(params, small.make_loss(small.apply_lenet), small.apply_lenet, opt,
-                 cfg, cx, cy, nk, device=dev)
+    task = common.TASKS[task_name]
+    (x, y), (xt, yt) = common.make_data(task, sc["n_train"], sc["n_test"], seed=0)
+    cx, cy, nk = partition_iid(x, y, k=sc["k"], seed=0)
+    params, apply = common.make_model(task, 0, dev)
+    cfg = common.method_cfg(method, sc["k"], sc["c"], sc["local_steps"], sc["batch"])
+    sim = FedSim(params, small.make_loss(apply), apply,
+                 common.make_optimizer(task, params), cfg, cx, cy, nk, device=dev)
+    return sim, cfg, (xt, yt)
+
+
+def main_path_phase(dev, method: str, rounds: int = 3) -> dict:
+    """``FedSim`` on cifar10-lenet at full width through the Table 1 driver's
+    pieces, at its CPU-budget scale."""
+    from repro_torch.bench import table1
+    from repro_torch.kernels import fp8_quant as K
+
+    sc = table1.CPU_BUDGET
+    sim, cfg, (xt, yt) = _make_sim(dev, "cifar10-lenet", method, sc)
     check(sim.bytes_per_round == SLICE_ROUND_BYTES,
-          f"bytes_per_round {sim.bytes_per_round} != {SLICE_ROUND_BYTES}")
+          f"{method}: bytes_per_round {sim.bytes_per_round} != {SLICE_ROUND_BYTES}")
 
     K.reset_launches()
     synchronize()
@@ -317,24 +463,54 @@ def main_path_phase(dev) -> dict:
     synchronize()
     t_eval = time.perf_counter() - t0
     acc = hist.accuracy[-1]
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in PATH_KERNELS[method]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {method} path")
+    if method == "uq+":
+        check(launches["fake_quant_tiles"] == UQP_LAUNCHES_PER_ROUND * rounds,
+              f"fake_quant_tiles launched {launches['fake_quant_tiles']} times in "
+              f"{rounds} rounds, not {UQP_LAUNCHES_PER_ROUND} a round")
     check(hist.cumulative_bytes == [rounds * SLICE_ROUND_BYTES],
           f"cumulative bytes {hist.cumulative_bytes}")
     check(all(math.isfinite(v) for v in hist.loss), f"loss {hist.loss}")
     for leaf in sim.params.values():
         for v in leaf.values():
             check(bool(torch.isfinite(v).all()), "non-finite parameter")
+    check(0.0 <= acc <= 1.0, f"accuracy {acc}")
     s_round = (t_run - t_eval) / rounds
-    print(f"[main] cifar10-lenet uq K=10 P=3 U=10 B=32: {rounds} rounds, "
+    print(f"[main] cifar10-lenet {method} K={sc['k']} P={cfg.clients_per_round} "
+          f"U={sc['local_steps']} B={sc['batch']}: {rounds} rounds, "
           f"{s_round:.3f} s/round (eval {t_eval:.3f} s), accuracy {acc:.4f}, "
           f"local_loss {hist.loss[-1]:.4f}, bytes/round {sim.bytes_per_round}, "
           f"launches {launches}")
-    profile_round(sim, s_round)
+    if method == "uq+":
+        time_server_step(sim)
+    profile_round(sim, s_round, method)
     return {"launches": launches, "s_per_round": s_round, "accuracy": acc}
 
 
-def profile_round(sim, s_round: float) -> None:
+def time_server_step(sim) -> None:
+    """Host-clock time of one UQ+ server step (``server_optimize``, 5 GD
+    steps + 20 grid points) on LeNet's plane with three client messages
+    made from the server model, synchronized; the median of 5 calls."""
+    from repro_torch.core.server_opt import server_optimize
+    from repro_torch.tree import tree_map
+
+    stacked = tree_map(lambda p: torch.stack([p, p * 1.01, p * 0.99]), sim.params)
+    nk = torch.tensor([1.0, 2.0, 3.0], device=sim.device)
+    d = sim.engine.draw(torch.Generator().manual_seed(5), sim.nk.cpu(),
+                        sim.client_data.shape[1]).to(sim.device)
+    samples = []
+    for _ in range(6):
+        synchronize()
+        t0 = time.perf_counter()
+        server_optimize(stacked, nk, d.gd_keys, d.grid_keys, sim.cfg.server_opt)
+        synchronize()
+        samples.append(time.perf_counter() - t0)
+    print(f"[main] uq+ server step on LeNet's plane (P=3): "
+          f"{statistics.median(samples[1:]) * 1e3:.2f} ms (host clock, median of 5)")
+
+
+def profile_round(sim, s_round: float, label: str) -> None:
     """One more round of the same simulation under ``torch.profiler``: the
     device's busy time and the kernels that take it, by self device time.
     The profiler slows the host many times over, so the busy share is given
@@ -352,18 +528,74 @@ def profile_round(sim, s_round: float) -> None:
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
     busy = sum(dev_time(e) for e in rows)
-    print(f"[profile] one round: device busy {busy / 1e3:.1f} ms = "
+    print(f"[profile] {label}: one round: device busy {busy / 1e3:.1f} ms = "
           f"{100 * busy / (s_round * 1e6):.1f}% of the unprofiled {s_round * 1e3:.1f} ms "
           f"round ({100 * busy / wall_us:.1f}% of the profiled wall "
           f"{wall_us / 1e3:.1f} ms), {len(rows)} kernel names")
     for e in sorted(rows, key=dev_time, reverse=True)[:12]:
         print(f"[profile]   {dev_time(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
     ours = ("quant_det_kernel", "quant_det_bwd_kernel", "sum_partials_kernel",
-            "quant_pack_kernel", "unpack_kernel")
+            "quant_pack_kernel", "unpack_kernel", "fake_quant_kernel",
+            "quant_rand_kernel", "quant_rand_bwd_kernel")
     for e in rows:
         if e.key.startswith(ours):
             print(f"[profile] ours: {e.key.split('(')[0]:22s} x{e.count:<5d} "
                   f"{dev_time(e) / max(e.count, 1):.2f} us of device time per launch")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the method grid (Table 1) and the stochastic-QAT cells (Table 2)
+# ---------------------------------------------------------------------------
+
+
+def grid_phase(dev) -> dict:
+    from repro_torch.bench import table1, table2
+    from repro_torch.kernels import fp8_quant as K
+
+    t0 = time.perf_counter()
+    rows = table1.run(device=dev, scale=dict(rounds=GRID_ROUNDS),
+                      eval_every=GRID_EVAL_EVERY)
+    for r in rows:
+        want = GRID_BYTES[(r["task"], r["method"])]
+        print(f"[grid] table1 {r['task']:14s} {r['setting']:6s} {r['method']:4s} "
+              f"{GRID_ROUNDS} rounds: final_acc {r['final_acc']:.4f} bytes/round "
+              f"{r['bytes_per_round']} comm_gain {r['comm_gain']} wall {r['wall_s']:.2f} s")
+        check(r["bytes_per_round"] == want,
+              f"{r['task']} {r['method']}: bytes/round {r['bytes_per_round']} != {want}")
+        check(0.0 <= r["final_acc"] <= 1.0, f"{r['task']} {r['method']}: accuracy")
+    check(len(rows) == len(GRID_BYTES) * 2, f"{len(rows)} grid rows")
+    print(f"[grid] table1: {len(rows)} cells in {time.perf_counter() - t0:.1f} s")
+
+    # Table 2's stochastic-QAT cell and the same QAT with the rand wire
+    cells = (("rand-qat/no-cq", "rand-qat-only"), ("rand-qat/rand-cq", "rand-qat"))
+    K.reset_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    rows2 = table2.run(device=dev, cells=cells)
+    synchronize()
+    launches = dict(K.LAUNCHES)
+    for r in rows2:
+        print(f"[grid] table2 {r['task']} {r['cell']} ({r['method']}): "
+              f"final_acc {r['final_acc']:.4f} bytes/round {r['bytes_per_round']} "
+              f"wall {r['wall_s']:.2f} s")
+        check(r["bytes_per_round"] == TABLE2_BYTES[r["method"]],
+              f"table2 {r['method']}: bytes/round {r['bytes_per_round']}")
+    for name in ("quant_rand", "quant_rand_bwd"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the rand-qat path")
+    check(launches["quant_rand"] >= launches["quant_rand_bwd"],
+          "fewer quant_rand forwards than backwards")
+    print(f"[grid] table2 rand-qat path: {time.perf_counter() - t0:.1f} s, "
+          f"launches {launches}")
+    # one profiled round of the rand-qat cell, for the quant_rand pair's
+    # device time per launch
+    sim, _, _ = _make_sim(dev, "cifar100-mlp", "rand-qat", table2.CPU_BUDGET)
+    sim.run(1, seed=0)
+    synchronize()
+    t0 = time.perf_counter()
+    sim.run(1, seed=2)
+    synchronize()
+    profile_round(sim, time.perf_counter() - t0, "table2 rand-qat")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -374,6 +606,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import fp8_quant as K
 
+    t_start = time.perf_counter()
     smi = smi_name_and_power()
     print(f"[setup] {smi}")
     print(f"[setup] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -390,25 +623,28 @@ def main() -> int:
     dev = torch.device("cuda")
     kern = kernel_phase(dev)
     round_phase(dev)
-    main = main_path_phase(dev)
+    main_path_phase(dev, "uq")
+    uqp = main_path_phase(dev, "uq+")
+    grid = grid_phase(dev)
 
-    sources = {"quant_det": "quant_det.cu", "quant_det_bwd": "quant_det_bwd.cu",
-               "quant_pack_tiles": "quant_pack.cu", "unpack_tiles": "unpack.cu"}
-    replaces = {"quant_det": 92, "quant_det_bwd": 198, "quant_pack_tiles": 614,
-                "unpack_tiles": 1036}
+    path_launches = {name: (grid["launches"][name] if name.startswith("quant_rand")
+                            else uqp["launches"][name]) for name in K.KERNELS}
     rows = []
     for name in K.KERNELS:
         t = kern["timings"][name]["main"]
+        source, line = KERNEL_INFO[name]
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
-            "replaces": f"src/repro/kernels/fp8_quant.py:{replaces[name]}",
-            "launches": main["launches"][name],
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/fp8_quant.py:{line}",
+            "launches": path_launches[name],
+            "path": "table2 rand-qat" if name.startswith("quant_rand") else "cifar10-lenet uq+",
             "max_abs_err": kern["worst"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
             "large": kern["timings"][name]["large"],
         })
+    print(f"[setup] whole run {time.perf_counter() - t_start:.1f} s")
     print(f"[setup] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

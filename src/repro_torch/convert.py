@@ -1,10 +1,12 @@
-"""Carry the reference's weights across to the port.
+"""Carry the reference's weights and optimizer state across to the port.
 
 The port keeps the reference's param keys (``w``, ``w_qa``, ``x_qb``, ``b``,
-``scale``, ``bias``) and layouts (dense ``(d_in, d_out)``, conv HWIO), so a
-reference param tree converted to numpy (``jax.tree.map(np.asarray, p)``)
-maps one to one onto the port's dict of tensors, and the wire's flat leaf
-order and bytes line up.
+``scale``, ``bias``, and KWT's ``pos``/``cls``) and layouts (dense
+``(d_in, d_out)``, conv HWIO, KWT's ``(T + 1, D)`` positions and ``(1, 1, D)``
+class token), so a reference param tree converted to numpy
+(``jax.tree.map(np.asarray, p)``) maps one to one onto the port's dict of
+tensors, and the wire's flat leaf order and bytes line up. The MLP, LeNet
+and KWT trees all convert this way.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .optim.adamw import AdamWState
 
 
 def from_jax_params(np_tree, device="cuda") -> dict:
@@ -24,3 +27,10 @@ def from_jax_params(np_tree, device="cuda") -> dict:
         return torch.from_numpy(np.array(v, copy=True)).to(dev)
 
     return conv(np_tree)
+
+
+def from_jax_adamw_state(np_state, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState(mu, nu)`` (fields as numpy trees) ->
+    the port's, each moment tree converted as :func:`from_jax_params`."""
+    return AdamWState(mu=from_jax_params(np_state.mu, device),
+                      nu=from_jax_params(np_state.nu, device))

@@ -7,6 +7,9 @@ the quantities in the paper's Table 1 / Figure 2.
 
 Each round's randomness comes from a ``torch.Generator`` seeded by
 ``run(seed=...)``, or is injected per round with ``run(draws=[...])``.
+Evaluation under stochastic QAT uses one fixed set of site bits (the
+counter RNG with an all-zero key), as the reference evaluates with a fixed
+key.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .engine import FedConfig, RoundDraws, RoundEngine, ServerState
+from .engine import CounterQatBits, FedConfig, RoundDraws, RoundEngine, ServerState
 from ..device import resolve_device
 from ..optim.base import Optimizer
 
@@ -27,6 +30,17 @@ class FedHistory:
     accuracy: list[float] = dataclasses.field(default_factory=list)
     loss: list[float] = dataclasses.field(default_factory=list)
     cumulative_bytes: list[int] = dataclasses.field(default_factory=list)
+
+    def best_accuracy(self) -> float:
+        return max(self.accuracy) if self.accuracy else 0.0
+
+    def bytes_to_accuracy(self, threshold: float) -> int | None:
+        """Cumulative bytes at the first eval reaching ``threshold`` (None if
+        never): the paper's communication-gain numerator / denominator."""
+        for acc, b in zip(self.accuracy, self.cumulative_bytes):
+            if acc >= threshold:
+                return b
+        return None
 
 
 def _as_tensor(a, device: torch.device) -> torch.Tensor:
@@ -66,6 +80,10 @@ class FedSim:
                             device=self.device)
         )
         self.engine = RoundEngine(loss_fn, optimizer, cfg, device=self.device)
+        self.eval_kw = {}
+        if cfg.qat.stochastic_weights:
+            zero = torch.zeros((1, 1, 2), dtype=torch.int64).to(torch.uint32)
+            self.eval_kw["bits"] = CounterQatBits(zero.to(self.device)).provider(0, 0)
         self.state: ServerState = self.engine.init(params)
         self.bytes_per_round = self.engine.round_bytes(params)
 
@@ -80,7 +98,8 @@ class FedSim:
         x, y = _as_tensor(x, self.device), _as_tensor(y, self.device).long()
         correct = 0
         for i in range(0, x.shape[0], batch):
-            logits = self.predict_fn(self.state.params, x[i:i + batch], self.cfg.qat)
+            logits = self.predict_fn(self.state.params, x[i:i + batch], self.cfg.qat,
+                                     **self.eval_kw)
             correct += int((torch.argmax(logits, -1) == y[i:i + batch]).sum())
         return correct / x.shape[0]
 

@@ -5,6 +5,10 @@
   autograd derives the paper's STE (round pass-through, exponent term
   detached, clip routing to ``alpha``). The kernel-backed version with a
   closed-form backward is ``kernels.dispatch.quantize_det``.
+* ``quantize_rand`` — stochastic rounding (paper Eq. 3) over explicit u32
+  random bits, STE-differentiable; the reference draws its uniforms from a
+  ``jax.random`` key instead, the port's callers hand in the bits (the
+  kernel-backed version is ``kernels.dispatch.quantize_rand``).
 * ``pack_fp8`` / ``unpack_fp8`` — ``[sign|exp|mant]`` uint8 codes. Codes stay
   ``torch.uint8``: the paper's grid has no special values, and its ±alpha
   point reads as NaN through torch's float8 dtypes.
@@ -86,6 +90,24 @@ def quantize_det(x: torch.Tensor, alpha: torch.Tensor,
     x_c = clip(x, alpha)
     s = _scale(x_c, alpha, fmt)
     return (s * _round_ste(x_c / s)).to(x.dtype)
+
+
+def quantize_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+                  fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Stochastic FP8 fake-quant Q_rand(x; alpha) (paper Eq. 3). Unbiased.
+
+    Rounds up where ``u = bits * 2^-32`` falls below the fractional position
+    between the two neighbouring grid points, so ``E[Q_rand(x)] ==
+    clip(x, -a, a)``. STE-differentiable like :func:`quantize_det`.
+    """
+    alpha = torch.clamp(alpha, min=_ALPHA_FLOOR)
+    x_c = clip(x, alpha)
+    s = _scale(x_c, alpha, fmt)
+    y = x_c / s
+    fl = torch.floor(y)
+    u = bits.to(torch.int64).to(torch.float32) * (1.0 / 4294967296.0)
+    q = fl + (u < (y - fl)).to(y.dtype)
+    return (s * (y + (q - y).detach())).to(x.dtype)
 
 
 def pack_fp8(x: torch.Tensor, alpha: torch.Tensor,

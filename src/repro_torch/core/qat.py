@@ -7,13 +7,23 @@ inside the parameter tree as siblings of the tensor they clip —
 * activation site ``bar``         -> clipping scalar ``bar_qb`` (beta)
 
 Biases, norm parameters and the clip values themselves are never
-weight-quantized. This slice ports deterministic QAT only (the paper's
-default, Remark 4): the reference's ``mode='rand'`` (the Table 2 ablation)
-waits for the ``quant_rand`` kernel pair, so ``QATConfig`` has no ``mode``.
+weight-quantized. ``mode='det'`` is the paper's default (Remark 4);
+``mode='rand'`` (the Table 2 ablation) quantizes each WEIGHT stochastically
+through the ``quant_rand`` kernel pair (activations stay deterministic, as
+in the reference).
+
+Stochastic QAT needs random bits at every weight site. The reference draws
+them inside the model from ``jax.random.bits(fold_in(key, site))``
+(``models/small.py:42-49``); here the model is handed a :data:`BitsFn`,
+``bits(site, shape) -> u32 tensor``, with sites numbered 1, 2, ... in the
+order the forward pass reaches them, as the reference's site counter does.
+The engine's default draws them from the counter RNG; parity tests replay
+the reference's bits through the same hook.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -23,6 +33,9 @@ from .. import tree
 
 QA_SUFFIX = "_qa"
 QB_SUFFIX = "_qb"
+MODES = ("det", "rand")
+
+BitsFn = Callable[[int, tuple], torch.Tensor]  # (site, shape) -> u32 bits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +46,17 @@ class QATConfig:
     quantize_weights: bool = True
     quantize_acts: bool = True
     fmt: FP8Format = E4M3
+    # paper default: deterministic QAT (Remark 4); 'rand' is the Table 2 ablation
+    mode: str = "det"
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"QATConfig.mode {self.mode!r}: one of {MODES}")
+
+    @property
+    def stochastic_weights(self) -> bool:
+        """True when weight sites draw random bits (mode 'rand', weights on)."""
+        return self.mode == "rand" and self.enabled and self.quantize_weights
 
 
 DISABLED = QATConfig(enabled=False, quantize_weights=False, quantize_acts=False)
@@ -64,13 +88,19 @@ def _lsq_grad_scale(alpha: torch.Tensor, n_elements: int,
     return alpha * g + (alpha * (1.0 - g)).detach()
 
 
-def wq(w: torch.Tensor, alpha: torch.Tensor, cfg: QATConfig) -> torch.Tensor:
-    """Fake-quantize a weight tensor for the forward pass (QAT)."""
+def wq(w: torch.Tensor, alpha: torch.Tensor, cfg: QATConfig,
+       bits: torch.Tensor | None = None) -> torch.Tensor:
+    """Fake-quantize a weight tensor for the forward pass (QAT); ``bits``
+    (u32 of w's shape) are the site's random bits in ``mode='rand'``."""
     if not (cfg.enabled and cfg.quantize_weights):
         return w
     from ..kernels import dispatch
 
     alpha = _lsq_grad_scale(alpha, w.numel(), cfg.fmt)
+    if cfg.mode == "rand":
+        if bits is None:
+            raise ValueError("stochastic QAT (mode='rand') needs the site's random bits")
+        return dispatch.quantize_rand(w, alpha, bits, cfg.fmt)
     return dispatch.quantize_det(w, alpha, cfg.fmt)
 
 

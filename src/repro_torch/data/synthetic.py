@@ -52,3 +52,22 @@ def synthetic_images(
         np.float32
     )
     return (0.5 + 0.25 * x).astype(np.float32), y.astype(np.int32)
+
+
+def synthetic_sequences(
+    seed: int, n: int, t: int = 32, feats: int = 64, n_classes: int = 35,
+    noise: float = 0.5,
+):
+    """Class-conditional temporal patterns (SpeechCommands MFCC-shaped)."""
+    rng = np.random.default_rng(seed)
+    carriers = rng.normal(size=(n_classes, t, feats)).astype(np.float32)
+    # smooth over time so classes have temporal structure
+    for _ in range(2):
+        carriers = 0.5 * carriers + 0.25 * np.roll(carriers, 1, axis=1) + 0.25 * np.roll(
+            carriers, -1, axis=1
+        )
+    y = rng.integers(0, n_classes, size=n)
+    shift = rng.integers(0, t, size=n)
+    x = np.stack([np.roll(carriers[yi], si, axis=0) for yi, si in zip(y, shift)])
+    x = x + noise * rng.normal(size=x.shape).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.int32)

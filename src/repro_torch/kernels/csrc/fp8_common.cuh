@@ -63,6 +63,14 @@ __device__ __forceinline__ uint32_t counter_bits(uint32_t idx, uint32_t k0,
   return fmix32(fmix32(idx ^ k0) ^ k1);
 }
 
+// Stochastic rounding from 32 random bits: u = bits * 2^-32 and
+// q = floor(y) + 1{u < y - floor(y)}, as _quant_rand_kernel does
+__device__ __forceinline__ float round_rand(float y, uint32_t bits) {
+  const float u = (float)bits * (1.0f / 4294967296.0f);
+  const float fl = floorf(y);
+  return fl + (u < (y - fl) ? 1.0f : 0.0f);
+}
+
 inline int grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;

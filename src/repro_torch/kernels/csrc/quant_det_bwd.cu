@@ -8,23 +8,9 @@
 //   g_alpha = sum g * (sign(x) * 1{|x| > a} + (q - y) * s / a)
 //
 // Bound: memory. Per element it reads x and g (8 bytes) and writes gx (4
-// bytes). The TPU kernel accumulated g_alpha in a (1, 1) block across its
-// sequential grid and zero-padded to whole tiles; here blocks run in no
-// order, so pass 1 writes one partial sum per block (fixed-order tree in
-// shared memory, ragged edge masked by the loop bound) and pass 2 reduces
-// the partials in one block. The grid size depends only on n, so the
-// result is deterministic without atomics.
-#include "fp8_common.cuh"
-
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = fp8::kThreads / 2; w > 0; w >>= 1) {
-    if ((int)threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-    __syncthreads();
-  }
-  return sh[0];
-}
+// bytes). g_alpha takes the deterministic two-pass reduction of reduce.cuh:
+// pass 1 writes one partial sum per block, pass 2 folds them in one block.
+#include "reduce.cuh"
 
 __global__ void quant_det_bwd_kernel(const float* __restrict__ x,
                                      const float* __restrict__ alpha,
@@ -50,23 +36,14 @@ __global__ void quant_det_bwd_kernel(const float* __restrict__ x,
     const float sg = xi > 0.0f ? 1.0f : (xi < 0.0f ? -1.0f : 0.0f);
     acc += gi * (sg * (1.0f - inside) + (q - y) * s / a);
   }
-  const float total = block_sum(acc, sh);
+  const float total = fp8::block_sum(acc, sh);
   if (threadIdx.x == 0) partial[blockIdx.x] = total;
-}
-
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    int n_parts, float* __restrict__ out) {
-  __shared__ float sh[fp8::kThreads];
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < n_parts; i += fp8::kThreads) acc += partial[i];
-  const float total = block_sum(acc, sh);
-  if (threadIdx.x == 0) out[0] = total;
 }
 
 // ``partial`` holds n_blocks floats; the wrapper sizes it with
 // repro_quant_det_bwd_blocks(n) so both sides agree on the grid.
 extern "C" int repro_quant_det_bwd_blocks(long long n) {
-  return fp8::grid_for(n) < 1024 ? fp8::grid_for(n) : 1024;
+  return fp8::bwd_blocks(n);
 }
 
 extern "C" int repro_quant_det_bwd(const float* x, const float* alpha,

@@ -34,15 +34,9 @@ __global__ void quant_pack_kernel(const float* __restrict__ x,
     float p = fminf(fp8::exponent(xc, b), p_max);
     const float s = fp8::scale(p, b, f);
     const float y = xc / s;
-    float v_signed;
-    if (stochastic) {
-      const uint32_t bits = fp8::counter_bits((uint32_t)i, k0, k1);
-      const float u = (float)bits * (1.0f / 4294967296.0f);
-      const float fl = floorf(y);
-      v_signed = fl + (u < (y - fl) ? 1.0f : 0.0f);
-    } else {
-      v_signed = rintf(y);
-    }
+    const float v_signed =
+        stochastic ? fp8::round_rand(y, fp8::counter_bits((uint32_t)i, k0, k1))
+                   : rintf(y);
     const int sign = v_signed < 0.0f ? 1 : 0;
     int v = (int)fabsf(v_signed);
     if (v >= top) {

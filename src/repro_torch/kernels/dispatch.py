@@ -6,9 +6,13 @@ path is chosen by the tensor's device alone, with no environment switch: a
 CUDA tensor launches the hand-written kernel (or raises), a CPU tensor runs
 the kernel's plain twin in ``kernels.ref``.
 
-``quantize_det`` is a ``torch.autograd.Function``: the forward is the
-``quant_det`` kernel, the backward the ``quant_det_bwd`` kernel (the paper's
-straight-through estimator in closed form). At an element exactly on the
+``quantize_det`` and ``quantize_rand`` are ``torch.autograd.Function`` classes:
+the forward is the ``quant_det`` / ``quant_rand`` kernel, the backward the
+``quant_det_bwd`` / ``quant_rand_bwd`` kernel (the paper's straight-through
+estimator in closed form). ``fake_quant_plane`` (the UQ+ server step) runs
+the ``fake_quant_tiles`` kernel forward; its backward is the reference's
+elementwise STE in plain torch, as the reference computes it in jnp outside
+any kernel (``repro/kernels/dispatch.py:457-469``). At an element exactly on the
 clip boundary (``|x| == alpha``, e.g. the largest weight right after the
 ``alpha = max|w|`` init) the closed form sends the whole gradient to ``x``,
 as the reference's Pallas backward does; the reference's jnp autodiff
@@ -56,6 +60,84 @@ def quantize_det(x: torch.Tensor, alpha: torch.Tensor,
             f"and a one-element alpha, got x {tuple(x.shape)}, alpha "
             f"{tuple(alpha.shape)} (the stacked-alpha kernel is not ported yet)")
     return fp8.quantize_det(x, alpha, fmt)
+
+
+class _QuantRandSTE(torch.autograd.Function):
+    """Q_rand with a per-tensor scalar alpha over explicit u32 bits: kernel
+    forward, kernel backward (the same bits)."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, bits, fmt):
+        ctx.fmt = fmt
+        ctx.save_for_backward(x, alpha, bits)
+        return fp8_quant.quant_rand(x, alpha, bits, fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, alpha, bits = ctx.saved_tensors
+        gx, ga = fp8_quant.quant_rand_bwd(x, alpha, bits, g.contiguous(), ctx.fmt)
+        return gx, ga.reshape(alpha.shape), None, None
+
+
+def quantize_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+                  fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Stochastic (unbiased) FP8 fake-quant through the kernel pair.
+
+    ``bits`` are u32 of x's shape, drawn by the caller (the reference draws
+    them with ``jax.random.bits`` outside its kernel). As for
+    :func:`quantize_det`, stacked clipping values and a 0-dim ``x`` take the
+    plain chain on the CPU and raise on the card.
+    """
+    if x.dim() >= 1 and alpha.numel() == 1:
+        return _QuantRandSTE.apply(x.contiguous(), alpha.to(torch.float32),
+                                   bits.contiguous(), fmt)
+    if x.device.type != "cpu" or alpha.device.type != "cpu":
+        raise NotImplementedError(
+            f"quantize_rand on {x.device.type}: the kernel takes x of rank >= 1 "
+            f"and a one-element alpha, got x {tuple(x.shape)}, alpha "
+            f"{tuple(alpha.shape)} (the stacked-alpha kernel is not ported yet)")
+    return fp8.quantize_rand(x, alpha, bits, fmt)
+
+
+class _FakeQuantPlaneSTE(torch.autograd.Function):
+    """``fake_quant_tiles`` forward; the paper's STE backward, elementwise
+    from the saved forward output (``(q - y) * s == q_val - clip(x)``, so no
+    random bits are replayed): the clip mask to the tiles, clip routing plus
+    the scale term summed per row to the ``(R, 1)`` alpha column."""
+
+    @staticmethod
+    def forward(ctx, x2, a_col, key2, fmt):
+        q = fp8_quant.fake_quant_tiles(x2, a_col, key2, fmt)
+        ctx.save_for_backward(x2, a_col, q)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, a_col, q = ctx.saved_tensors
+        a = torch.clamp(a_col, min=fp8._ALPHA_FLOOR)
+        inside = (torch.abs(x2) <= a).to(torch.float32)
+        gx = g * inside
+        if not ctx.needs_input_grad[1]:   # UQ+'s Eq. 4 holds alpha fixed
+            return gx, None, None, None
+        xc = fp8.clip(x2, a)
+        ga_row = torch.sum(
+            g * (torch.sign(x2) * (1.0 - inside) + (q - xc) / a), dim=1, keepdim=True)
+        return gx, ga_row, None, None
+
+
+def fake_quant_plane(x2: torch.Tensor, a_col: torch.Tensor,
+                     key2: torch.Tensor | None, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Differentiable one-launch quantize-dequantize of the ``(R, LANE)``
+    plane with a per-row ``(R, 1)`` alpha column (STE gradients)."""
+    return _FakeQuantPlaneSTE.apply(x2.contiguous(), a_col, key2, fmt)
+
+
+def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                     key2: torch.Tensor | None = None,
+                     fmt: FP8Format = E4M3) -> torch.Tensor:
+    """One-launch quantize-dequantize (f32 out, no codes). Equal to
+    ``unpack_tiles(quant_pack_tiles(...))`` within 1 f32 ULP."""
+    return fp8_quant.fake_quant_tiles(x2, a2, key2, fmt)
 
 
 def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,

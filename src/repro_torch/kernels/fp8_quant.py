@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels for the FP8 hot path, their build and wrappers.
 
-The CUDA C++ sources under ``csrc/`` port four Pallas kernels of
+The CUDA C++ sources under ``csrc/`` port seven Pallas kernels of
 ``repro.kernels.fp8_quant``, each wrapper here named after the Pallas
 kernel it replaces:
 
@@ -8,6 +8,9 @@ kernel it replaces:
 * ``quant_det_bwd``    — ``csrc/quant_det_bwd.cu``
 * ``quant_pack_tiles`` — ``csrc/quant_pack.cu``
 * ``unpack_tiles``     — ``csrc/unpack.cu``
+* ``fake_quant_tiles`` — ``csrc/fake_quant.cu``
+* ``quant_rand``       — ``csrc/quant_rand.cu``
+* ``quant_rand_bwd``   — ``csrc/quant_rand.cu``
 
 Build: at first use, ``nvcc`` compiles every source for ``sm_90a`` at once
 (one process per source, started together), links one shared library with a
@@ -37,8 +40,9 @@ from . import ref
 from ..core.fp8 import E4M3, FP8Format
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("quant_det.cu", "quant_det_bwd.cu", "quant_pack.cu", "unpack.cu")
-HEADERS = ("fp8_common.cuh",)
+SOURCES = ("quant_det.cu", "quant_det_bwd.cu", "quant_pack.cu", "unpack.cu",
+           "fake_quant.cu", "quant_rand.cu")
+HEADERS = ("fp8_common.cuh", "reduce.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
@@ -46,7 +50,8 @@ NVCC_FLAGS = (
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 LANE = ref.LANE
-KERNELS = ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles")
+KERNELS = ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles",
+           "fake_quant_tiles", "quant_rand", "quant_rand_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib: ctypes.CDLL | None = None
@@ -130,9 +135,13 @@ def load() -> ctypes.CDLL:
         lib.repro_quant_det_bwd.argtypes = [p, p, p, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_pack_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
         lib.repro_unpack_tiles.argtypes = [p, p, i32, p, i64, *fmt_args, p]
+        lib.repro_fake_quant_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
+        lib.repro_quant_rand.argtypes = [p, p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_rand_bwd.argtypes = [p, p, p, p, p, p, p, i64, *fmt_args, p]
         for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_blocks,
                    lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
-                   lib.repro_unpack_tiles):
+                   lib.repro_unpack_tiles, lib.repro_fake_quant_tiles,
+                   lib.repro_quant_rand, lib.repro_quant_rand_bwd):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -189,8 +198,14 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _check_scalar_alpha(alpha: torch.Tensor) -> None:
+    _check(alpha, "alpha", torch.float32)
+    if alpha.numel() != 1:
+        raise ValueError(f"alpha must hold one value, got shape {tuple(alpha.shape)}")
+
+
 # ---------------------------------------------------------------------------
-# the four kernels
+# the kernels
 # ---------------------------------------------------------------------------
 
 
@@ -200,9 +215,7 @@ def quant_det(x: torch.Tensor, alpha: torch.Tensor,
     if _on_cpu(x, alpha):
         return ref.quant_det(x, alpha, fmt)
     _check(x, "x", torch.float32)
-    _check(alpha, "alpha", torch.float32)
-    if alpha.numel() != 1:
-        raise ValueError(f"alpha must hold one value, got shape {tuple(alpha.shape)}")
+    _check_scalar_alpha(alpha)
     out = torch.empty_like(x)
     rc = load().repro_quant_det(x.data_ptr(), alpha.data_ptr(), out.data_ptr(),
                                 x.numel(), *_fmt_args(fmt), _stream())
@@ -217,9 +230,7 @@ def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
         return ref.quant_det_bwd(x, alpha, g, fmt)
     _check(x, "x", torch.float32)
     _check(g, "g", torch.float32, tuple(x.shape))
-    _check(alpha, "alpha", torch.float32)
-    if alpha.numel() != 1:
-        raise ValueError(f"alpha must hold one value, got shape {tuple(alpha.shape)}")
+    _check_scalar_alpha(alpha)
     lib = load()
     gx = torch.empty_like(x)
     partial = torch.empty(lib.repro_quant_det_bwd_blocks(x.numel()),
@@ -264,3 +275,63 @@ def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
                                    _stream())
     _launched(rc, "unpack_tiles")
     return out
+
+
+def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                     key2: torch.Tensor | None = None,
+                     fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Quantize -> dequantize ``(R, 1024)`` f32 tiles to f32 grid values (no
+    codes); ``key2`` is a ``(2,)`` u32 key for stochastic rounding from the
+    counter RNG, None for deterministic. ``a2`` is ``(R, 1)`` or ``(R, 1024)``."""
+    if _on_cpu(x2, a2, key2):
+        return ref.fake_quant_tiles(x2, a2, key2, fmt)
+    _check(x2, "x2", torch.float32)
+    a_cols = _check_alpha_tiles(x2, a2)
+    if key2 is not None:
+        _check(key2, "key2", torch.uint32, (2,))
+    out = torch.empty_like(x2)
+    rc = load().repro_fake_quant_tiles(
+        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), out.data_ptr(),
+        x2.numel(), *_fmt_args(fmt), _stream())
+    _launched(rc, "fake_quant_tiles")
+    return out
+
+
+def quant_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+               fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Q_rand fake-quant of any-shape f32 ``x`` with a one-element ``alpha``
+    and u32 random ``bits`` of x's shape."""
+    if _on_cpu(x, alpha, bits):
+        return ref.quant_rand(x, alpha, bits, fmt)
+    _check(x, "x", torch.float32)
+    _check(bits, "bits", torch.uint32, tuple(x.shape))
+    _check_scalar_alpha(alpha)
+    out = torch.empty_like(x)
+    rc = load().repro_quant_rand(x.data_ptr(), alpha.data_ptr(), bits.data_ptr(),
+                                 out.data_ptr(), x.numel(), *_fmt_args(fmt),
+                                 _stream())
+    _launched(rc, "quant_rand")
+    return out
+
+
+def quant_rand_bwd(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+                   g: torch.Tensor, fmt: FP8Format = E4M3):
+    """STE backward of :func:`quant_rand` (same bits): ``(gx, g_alpha)``,
+    g_alpha 0-dim."""
+    if _on_cpu(x, alpha, bits, g):
+        return ref.quant_rand_bwd(x, alpha, bits, g, fmt)
+    _check(x, "x", torch.float32)
+    _check(bits, "bits", torch.uint32, tuple(x.shape))
+    _check(g, "g", torch.float32, tuple(x.shape))
+    _check_scalar_alpha(alpha)
+    lib = load()
+    gx = torch.empty_like(x)
+    partial = torch.empty(lib.repro_quant_det_bwd_blocks(x.numel()),
+                          dtype=torch.float32, device=x.device)
+    ga = torch.empty((), dtype=torch.float32, device=x.device)
+    rc = lib.repro_quant_rand_bwd(
+        x.data_ptr(), alpha.data_ptr(), bits.data_ptr(), g.data_ptr(),
+        gx.data_ptr(), partial.data_ptr(), ga.data_ptr(), x.numel(),
+        *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_rand_bwd")
+    return gx, ga

@@ -93,13 +93,76 @@ def counter_bits(idx: torch.Tensor, k0: int | torch.Tensor,
     return _fmix32(_fmix32((idx & _M32) ^ k0) ^ k1)
 
 
-def tile_counter_bits(shape: tuple[int, int], key2: torch.Tensor) -> torch.Tensor:
-    """counter_bits over a whole ``(rows, LANE)`` tile buffer: the global
-    element index ``row * LANE + col`` mixed with the two key words."""
+def tile_counter_bits(shape: tuple[int, int], key2: torch.Tensor,
+                      row0: int = 0) -> torch.Tensor:
+    """counter_bits over a ``(rows, LANE)`` tile buffer whose first row is
+    absolute row ``row0``: the global element index ``row * LANE + col``
+    mixed with the two key words."""
     k = key2.to(torch.int64)
-    idx = torch.arange(shape[0] * shape[1], dtype=torch.int64,
-                       device=key2.device).reshape(shape)
+    idx = torch.arange(row0 * shape[1], (row0 + shape[0]) * shape[1],
+                       dtype=torch.int64, device=key2.device).reshape(shape)
     return counter_bits(idx, k[0], k[1])
+
+
+def _round_rand(y: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding from u32 ``bits`` (any integer dtype), as the
+    kernels: ``u = bits * 2^-32``, ``floor(y) + 1{u < y - floor(y)}``."""
+    u = bits.to(torch.int64).to(torch.float32) * _INV_2_32
+    fl = torch.floor(y)
+    return fl + (u < (y - fl)).to(torch.float32)
+
+
+def quant_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+               fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_quant_rand_kernel``: Q_rand with a per-tensor scalar alpha
+    and external u32 ``bits`` of x's shape."""
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    b = _bias(a, fmt)
+    xc = _clip(x, a)
+    _, s = _scale_p(xc, b, fmt)
+    return s * _round_rand(xc / s, bits)
+
+
+def quant_rand_bwd(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+                   g: torch.Tensor, fmt: FP8Format = E4M3):
+    """Twin of ``_quant_rand_bwd_kernel``: :func:`quant_det_bwd` with the
+    forward's stochastic ``q`` (same bits) in the scale term."""
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    b = _bias(a, fmt)
+    inside = (torch.abs(x) <= a).to(torch.float32)
+    xc = _clip(x, a)
+    _, s = _scale_p(xc, b, fmt)
+    y = xc / s
+    q = _round_rand(y, bits)
+    gx = g * inside
+    ga = torch.sum(g * (torch.sign(x) * (1.0 - inside) + (q - y) * s / a))
+    return gx, ga
+
+
+def fake_quant_bits(x2: torch.Tensor, a2: torch.Tensor,
+                    bits: torch.Tensor | None, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``fake_quant_bits_jnp``: quantize-dequantize with explicit u32
+    ``bits`` (None -> round to nearest even), the saturated-exponent clamp
+    included. ``a2`` broadcasts against ``x2`` and is not floored here."""
+    a = a2.to(torch.float32)
+    b = _bias(a, fmt)
+    xc = _clip(x2, a)
+    p, s = _scale_p(xc, b, fmt, saturate=True)
+    y = xc / s
+    q = torch.round(y) if bits is None else _round_rand(y, bits)
+    vmax = float(2 ** (fmt.mant + 1) - 1)
+    q = torch.where(p >= float(fmt.max_exp_code), torch.clamp(q, -vmax, vmax), q)
+    return s * q
+
+
+def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                     key2: torch.Tensor | None = None,
+                     fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_fake_quant_tiles_kernel`` (det) / ``_rand_kernel`` (counter
+    RNG keyed by the ``(2,)`` u32 ``key2``): ``(R, LANE)`` f32 -> f32 grid
+    values without codes. ``a2`` is ``(R, 1)`` or ``(R, LANE)``."""
+    bits = None if key2 is None else tile_counter_bits(tuple(x2.shape), key2)
+    return fake_quant_bits(x2, a2, bits, fmt)
 
 
 def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
@@ -119,10 +182,7 @@ def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
     if key2 is None:
         v_signed = torch.round(y)
     else:
-        bits = tile_counter_bits(tuple(x2.shape), key2)
-        u = bits.to(torch.float32) * _INV_2_32
-        fl = torch.floor(y)
-        v_signed = fl + (u < (y - fl)).to(torch.float32)
+        v_signed = _round_rand(y, tile_counter_bits(tuple(x2.shape), key2))
     sign = (v_signed < 0).to(torch.int32)
     v = torch.abs(v_signed).to(torch.int32)
     top = 2 ** (fmt.mant + 1)

@@ -1,15 +1,20 @@
 """The paper's own experiment models, the port of ``repro.models.small``.
 
-This slice ports the MLP (test workhorse) and LeNet with GroupNorm (the
-paper's CIFAR model). Params and layouts match the reference so weights
-carry across through ``convert.from_jax_params``: dense weights are
-``(d_in, d_out)``, conv weights HWIO, activations NHWC at ``apply``'s
-boundary; convolutions permute to PyTorch's NCHW/OIHW internally. The
-``_qa``/``_qb`` clipping values follow ``core.qat``.
+Ported: the MLP (test workhorse), LeNet with GroupNorm (the paper's CIFAR
+model) and the KWT-style tiny transformer (keyword spotting). Params and
+layouts match the reference so weights carry across through
+``convert.from_jax_params``: dense weights are ``(d_in, d_out)``, conv
+weights HWIO, activations NHWC at ``apply``'s boundary; convolutions permute
+to PyTorch's NCHW/OIHW internally. The ``_qa``/``_qb`` clipping values
+follow ``core.qat``.
 
 ``init_*(seed, ..., device)`` draws from a ``torch.Generator`` on the CPU
 (reproducible across devices) and moves the params to ``device``;
-``apply_*(params, x, qcfg) -> logits``.
+``apply_*(params, x, qcfg, bits=None) -> logits``. ``bits`` is stochastic
+QAT's :data:`core.qat.BitsFn`: every dense or conv layer is one weight
+site, numbered 1, 2, ... in call order as the reference's site counter
+(``_SITE``) numbers them, and in ``mode='rand'`` its weight quantizer takes
+``bits(site, w.shape)``.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.qat import QATConfig, alpha_like, aq, beta_init, wq
+from ..core.qat import BitsFn, QATConfig, alpha_like, aq, beta_init, wq
 from ..device import resolve_device
 from ..tree import tree_map
 
@@ -46,15 +51,28 @@ def _to(params: dict, device) -> dict:
     return tree_map(lambda t: t.to(device=dev, dtype=torch.float32), params)
 
 
-def _dense(p, x, qcfg):
+class _Sites:
+    """Numbers the weight sites of one forward pass and fetches each site's
+    random bits (None unless the weights are stochastically quantized)."""
+
+    def __init__(self, qcfg: QATConfig, bits: BitsFn | None):
+        self.n = 0
+        self.bits = bits if qcfg.stochastic_weights else None
+
+    def next(self, shape) -> torch.Tensor | None:
+        self.n += 1
+        return None if self.bits is None else self.bits(self.n, tuple(shape))
+
+
+def _dense(p, x, qcfg, sites: _Sites):
     x = aq(x, p["x_qb"], qcfg) if "x_qb" in p else x
-    return x @ wq(p["w"], p["w_qa"], qcfg) + p["b"]
+    return x @ wq(p["w"], p["w_qa"], qcfg, sites.next(p["w"].shape)) + p["b"]
 
 
-def _conv(p, x, qcfg):
+def _conv(p, x, qcfg, sites: _Sites):
     """Stride-1 "SAME" conv of an NHWC activation with an HWIO kernel."""
     x = aq(x, p["x_qb"], qcfg) if "x_qb" in p else x
-    w = wq(p["w"], p["w_qa"], qcfg)
+    w = wq(p["w"], p["w_qa"], qcfg, sites.next(p["w"].shape))
     kh, kw = w.shape[0], w.shape[1]
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                  padding=(kh // 2, kw // 2))
@@ -99,13 +117,14 @@ def init_mlp(seed=0, d_in=32, d_hidden=64, n_classes=10, depth=2, device="cuda")
     return _to(params, device)
 
 
-def apply_mlp(params, x, qcfg: QATConfig):
+def apply_mlp(params, x, qcfg: QATConfig, bits: BitsFn | None = None):
+    sites = _Sites(qcfg, bits)
     h = x.reshape(x.shape[0], -1)
     i = 0
     while f"fc{i}" in params:
-        h = torch.relu(_dense(params[f"fc{i}"], h, qcfg))
+        h = torch.relu(_dense(params[f"fc{i}"], h, qcfg, sites))
         i += 1
-    return _dense(params["head"], h, qcfg)
+    return _dense(params["head"], h, qcfg, sites)
 
 
 # ---------------------------------------------------------------------------
@@ -127,16 +146,82 @@ def init_lenet(seed=0, in_ch=3, n_classes=10, device="cuda"):
     return _to(params, device)
 
 
-def apply_lenet(params, x, qcfg: QATConfig):
+def apply_lenet(params, x, qcfg: QATConfig, bits: BitsFn | None = None):
     # x: (B, 32, 32, C) float in [0, 1]
-    h = torch.relu(group_norm(params["gn1"], _conv(params["conv1"], x, qcfg)))
+    sites = _Sites(qcfg, bits)
+    h = torch.relu(group_norm(params["gn1"], _conv(params["conv1"], x, qcfg, sites)))
     h = _max_pool(h)
-    h = torch.relu(group_norm(params["gn2"], _conv(params["conv2"], h, qcfg)))
+    h = torch.relu(group_norm(params["gn2"], _conv(params["conv2"], h, qcfg, sites)))
     h = _max_pool(h)
     h = h.reshape(h.shape[0], -1)
-    h = torch.relu(_dense(params["fc1"], h, qcfg))
-    h = torch.relu(_dense(params["fc2"], h, qcfg))
-    return _dense(params["head"], h, qcfg)
+    h = torch.relu(_dense(params["fc1"], h, qcfg, sites))
+    h = torch.relu(_dense(params["fc2"], h, qcfg, sites))
+    return _dense(params["head"], h, qcfg, sites)
+
+
+# ---------------------------------------------------------------------------
+# KWT-style tiny transformer classifier (keyword spotting)
+# ---------------------------------------------------------------------------
+
+
+def init_kwt(seed=0, in_feats=64, d_model=64, n_heads=4, depth=2, n_classes=35,
+             seq_len=32, device="cuda"):
+    g = _generator(seed)
+    params = {
+        "embed": {**_dense_init(g, in_feats, d_model), "x_qb": beta_init()},
+        "pos": torch.randn((seq_len + 1, d_model), generator=g) * 0.02,
+        "cls": torch.zeros((1, 1, d_model)),
+    }
+    for i in range(depth):
+        params[f"layer{i}"] = {
+            "ln1": _gn_init(d_model),
+            "qkv": {**_dense_init(g, d_model, 3 * d_model), "x_qb": beta_init()},
+            "proj": {**_dense_init(g, d_model, d_model), "x_qb": beta_init()},
+            "ln2": _gn_init(d_model),
+            "fc1": {**_dense_init(g, d_model, 4 * d_model), "x_qb": beta_init()},
+            "fc2": {**_dense_init(g, 4 * d_model, d_model), "x_qb": beta_init()},
+        }
+    params["head"] = {**_dense_init(g, d_model, n_classes), "x_qb": beta_init()}
+    return _to(params, device)
+
+
+def _layer_norm(p, x, eps=1e-5):
+    """LayerNorm over the last axis with the population variance, as the
+    reference writes it (``x.var(-1)``)."""
+    mean = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mean) / torch.sqrt(var + eps) * p["scale"] + p["bias"]
+
+
+def _kwt_layer(p, x, qcfg, sites: _Sites, n_heads=4):
+    B, T, D = x.shape
+    H = n_heads
+    h = _layer_norm(p["ln1"], x)
+    qkv = _dense(p["qkv"], h, qcfg, sites).reshape(B, T, 3, H, D // H)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    # plain einsums and a softmax, as the reference: a fused attention
+    # kernel would change the arithmetic
+    att = torch.einsum("bthd,bshd->bhts", q, k) / float(np.sqrt(D // H))
+    att = torch.softmax(att, dim=-1)
+    o = torch.einsum("bhts,bshd->bthd", att, v).reshape(B, T, D)
+    x = x + _dense(p["proj"], o, qcfg, sites)
+    h = _layer_norm(p["ln2"], x)
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(_dense(p["fc1"], h, qcfg, sites), approximate="tanh")
+    return x + _dense(p["fc2"], h, qcfg, sites)
+
+
+def apply_kwt(params, x, qcfg: QATConfig, bits: BitsFn | None = None, n_heads=4):
+    # x: (B, T, F)
+    sites = _Sites(qcfg, bits)
+    h = _dense(params["embed"], x, qcfg, sites)
+    cls = params["cls"].expand(h.shape[0], 1, h.shape[-1])
+    h = torch.cat([cls, h], dim=1) + params["pos"][: h.shape[1] + 1]
+    i = 0
+    while f"layer{i}" in params:
+        h = _kwt_layer(params[f"layer{i}"], h, qcfg, sites, n_heads)
+        i += 1
+    return _dense(params["head"], h[:, 0], qcfg, sites)
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +236,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_loss(apply_fn):
-    def loss(params, x, y, qcfg):
-        return softmax_xent(apply_fn(params, x, qcfg), y)
+    def loss(params, x, y, qcfg, bits=None):
+        return softmax_xent(apply_fn(params, x, qcfg, bits=bits), y)
 
     return loss
 
@@ -160,4 +245,5 @@ def make_loss(apply_fn):
 REGISTRY = {
     "mlp": (init_mlp, apply_mlp),
     "lenet": (init_lenet, apply_lenet),
+    "kwt": (init_kwt, apply_kwt),
 }

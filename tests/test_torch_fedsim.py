@@ -179,7 +179,9 @@ def test_fedconfig_rejects_unported_fields_and_bad_values():
     with pytest.raises(ValueError, match="comm_mode"):
         t_engine.FedConfig(comm_mode="fp4")
     with pytest.raises(TypeError):
-        TQAT(mode="rand")
+        TQAT(bwd_fmt=None)
+    with pytest.raises(ValueError, match="mode"):
+        TQAT(mode="stochastic")
 
 
 def test_entry_points_without_device_raise_on_cpu_only_host():
