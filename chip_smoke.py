@@ -7,7 +7,7 @@ Phases, each fatal on failure (the script then exits non-zero):
 
 1. set-up: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``); turns TF32 off for matmuls and cuDNN
-   convolutions; builds the seven CUDA kernels from ``src/repro_torch/
+   convolutions; builds the eleven CUDA kernels from ``src/repro_torch/
    kernels/csrc`` (``nvcc``, one process per source, at first use) and
    prints the build time.
 2. each kernel against its plain PyTorch twin on the card, at the shapes
@@ -21,16 +21,25 @@ Phases, each fatal on failure (the script then exits non-zero):
    (8191, 1024), and on each model's real plane (its init weights with
    their own alpha column), ``fake_quant_tiles`` also against the wire's
    encode -> decode (1 f32 ULP); the ``quant_rand`` pair at every model's
-   weights, every MLP weight shape and (8191, 1024). Bitwise (the PR 11
-   kernels with at most 1e-5 of elements allowed to differ, adjacent-grid
-   ties), and each scalar clip cotangent at relative 1e-5 with a
-   cotangent signed like x. Prints each kernel's
+   weights, every MLP weight shape and (8191, 1024); the FP4 pair
+   (``quant_pack_sub_tiles``, ``unpack_sub_tiles``) and the amax encodes
+   (``quant_pack_amax_tiles``, ``quant_pack_sub_amax_tiles``) at both FP4
+   formats (and E4M3/E5M2 for the FP8 amax encode), det and counter-RNG,
+   alpha as a column and per element, on random tiles and on the real
+   planes of the format ablation's MLP (9, 1024) and of LeNet (135, 1024)
+   and at (8191, 1024): codes bitwise, the amax encodes' codes equal to the
+   plain encodes' and their row max equal to ``torch.amax(|x|)``, the FP4
+   transit within 1 f32 ULP of ``fake_quant_tiles`` at the FP4 format.
+   Bitwise (the PR 11 kernels with at most 1e-5 of elements allowed to
+   differ, adjacent-grid ties), and each scalar clip cotangent at relative
+   1e-5 with a cotangent signed like x. Prints each kernel's
    median time (CUDA events) beside its plain twin's and its bound (bytes
    over 3.35 TB/s, or operations over the card's f32 rate, the larger).
 3. the card against the CPU twins: one small federated round with the same
    draws (``round_phase``; MLP uq, LeNet with weight QAT, LeNet with full
    QAT, MLP uq+, MLP rand-qat): exact bytes, params and loss within the
-   tolerances stated there.
+   tolerances stated there; also an MLP round with FP4 and delayed scaling
+   on both legs, and one with an FP4 downlink and a delta:FP4 uplink.
 4. the main paths, each driven with every launch counter zeroed just
    before and read just after: ``FedSim`` on cifar10-lenet (full-width
    LeNet) at the Table 1 driver's CPU-budget scale (K=10, C=0.3 (P=3), 10
@@ -47,6 +56,17 @@ Phases, each fatal on failure (the script then exits non-zero):
    Then the rand-qat / rand-qat-only cells of ``repro_torch.bench.table2``
    on cifar100-mlp at its default scale: the stochastic-QAT path, driven
    with the counters zeroed, where both ``quant_rand`` kernels must launch.
+6. the format ablation (run before phase 5): the ``format`` and
+   ``scaling`` sections of ``repro_torch.bench.format_ablation`` at the
+   reference's own scale (18 cells, 25 rounds, eval every 5), then four
+   full-width cifar10-lenet cells at the Table 1 budget, 3 rounds each (FP4
+   on both legs; FP4 down with a delta:FP4 uplink; E4M3 with delayed:4 on
+   both legs; FP4 with delayed:4 on both legs). Each cell is driven with
+   the counters zeroed just before and read just after: its bytes per round
+   must be the reference's integer, the kernels of its codecs must launch,
+   and the amax encodes must not launch where no leg is delayed. One round
+   each of the FP4, the E4M3 delayed and the FP4 delayed LeNet cell is
+   profiled, for the new kernels' device time per launch.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it); the last line is
@@ -81,11 +101,43 @@ GRID_BYTES = {
 }
 TABLE2_BYTES = {"rand-qat": 124224, "rand-qat-only": 474432}
 GRID_ROUNDS, GRID_EVAL_EVERY = 20, 5    # the reference driver's CPU-budget scale
+# the reference's bytes per round of the format ablation's cells (MLP d_in 64,
+# 10 classes, K=10, C=0.3), and of the cifar10-lenet format cells (K=10, C=0.3)
+FORMAT_BYTES = {
+    "fp32": 215424,
+    **{f"{c}|{r}": 56448 for c in ("e4m3", "e5m2") for r in ("rand", "det")},
+    **{f"{c}|{r}": 29952 for c in ("fp4_e2m1", "fp4_e3m0") for r in ("rand", "det")},
+    "delta:e4m3|rand": 56484, "delta:e4m3|det": 56484,
+    "delta:fp4_e2m1|rand": 29988, "delta:fp4_e2m1|det": 29988,
+    "e4m3|rand|current": 56448, "e4m3|rand|delayed:4": 56520,
+    "e4m3|rand|delayed:16:1": 56520, "e4m3|rand|frozen_down": 56412,
+    "e4m3|rand|frozen_down+delayed_up": 56448,
+}
+LENET_FORMAT_CELLS = (   # (label, FedConfig overrides, bytes per round)
+    ("fp4_e2m1", dict(down_codec="fp4_e2m1", up_codec="fp4_e2m1"), 416910),
+    ("fp4_e2m1 + delta:fp4_e2m1 up", dict(down_codec="fp4_e2m1", up_codec="delta:fp4_e2m1"),
+     416970),
+    ("e4m3 delayed:4", dict(down_scaling="delayed:4", up_scaling="delayed:4"), 826980),
+    ("fp4_e2m1 delayed:4", dict(down_codec="fp4_e2m1", up_codec="fp4_e2m1",
+                                down_scaling="delayed:4", up_scaling="delayed:4"), 417030),
+)
+FORMAT_ROUNDS = 3       # of each cifar10-lenet format cell
+PROFILED_IN = {   # kernel: (the profiled LeNet cell that runs it, its CUDA name)
+    "quant_pack_sub_tiles": ("fp4_e2m1", "quant_pack_sub_kernel"),
+    "unpack_sub_tiles": ("fp4_e2m1", "unpack_sub_kernel"),
+    "quant_pack_amax_tiles": ("e4m3 delayed:4", "quant_pack_amax_kernel<1>"),
+    "quant_pack_sub_amax_tiles": ("fp4_e2m1 delayed:4", "quant_pack_amax_kernel<2>"),
+}
+FORMAT_KERNELS = ("quant_pack_sub_tiles", "unpack_sub_tiles", "quant_pack_amax_tiles",
+                  "quant_pack_sub_amax_tiles")
 KERNEL_INFO = {   # name: (source under csrc/, line of the TPU kernel in fp8_quant.py)
     "quant_det": ("quant_det.cu", 92), "quant_det_bwd": ("quant_det_bwd.cu", 198),
     "quant_pack_tiles": ("quant_pack.cu", 614), "unpack_tiles": ("unpack.cu", 1036),
     "fake_quant_tiles": ("fake_quant.cu", 455), "quant_rand": ("quant_rand.cu", 115),
     "quant_rand_bwd": ("quant_rand.cu", 231),
+    "quant_pack_sub_tiles": ("quant_pack_sub.cu", 736), "unpack_sub_tiles": ("unpack.cu", 777),
+    "quant_pack_amax_tiles": ("quant_pack_amax.cu", 900),
+    "quant_pack_sub_amax_tiles": ("quant_pack_amax.cu", 944),
 }
 
 
@@ -155,8 +207,10 @@ def kernel_phase(dev) -> dict:
     from repro_torch import tree
     from repro_torch.bench import common
     from repro_torch.core import plane, wire
+    from repro_torch.core.fp8 import E4M3, E5M2, FP4_E2M1, FP4_E3M0
     from repro_torch.kernels import fp8_quant as K
     from repro_torch.kernels import ref as R
+    from repro_torch.models import small
 
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -276,7 +330,64 @@ def kernel_phase(dev) -> dict:
         check(rel <= GA_RTOL, f"quant_rand_bwd g_alpha {label} {shape}: rel err {rel:.3g}")
         print(f"[kernels] quant_rand/bwd {label} {shape}: g_alpha kernel {float(ga):.9g} "
               f"twin {float(rga):.9g} rel {rel:.3g}")
-    print(f"[kernels] all kernels within bound; max abs err {worst}")
+
+    # the FP4 pair and the amax encodes (B8, B9): random tiles at the format
+    # ablation MLP's plane (9, 1024), LeNet's (135, 1024) and the large shape,
+    # each with an odd-length tail, and the two real planes with their own
+    # alpha columns; both FP4 formats (and E4M3/E5M2 for the FP8 amax encode),
+    # det and counter-RNG, alpha as a column and per element
+    mlp = small.init_mlp(0, d_in=64, n_classes=10, device=dev)
+    spec = plane.make_plane_spec(mlp)
+    w2, alphas = plane.pack_tiles(mlp, spec)
+    format_planes = [("format-mlp plane", w2, plane.alpha_column(alphas, spec)),
+                     next(pl for pl in planes if pl[0].startswith("cifar10-lenet"))]
+    check(tuple(w2.shape) == (9, 1024), f"format MLP plane {tuple(w2.shape)}")
+    fp4_cases = []
+    for shape in ((9, 1024), (135, 1024), LARGE):
+        x = randn(shape, 0.2)
+        x[-1, 517:] = 0.0
+        fp4_cases.append(("random", x, x.abs().amax(dim=1, keepdim=True) * 0.9))
+    fp4_cases += format_planes
+    n_cases = 0
+    for label, x, col in fp4_cases:
+        rowmax = torch.amax(x.abs(), 1, keepdim=True)
+        for a2 in (col, col.expand(x.shape).contiguous()):
+            for k2 in (None, key):
+                for fmt in (E4M3, E5M2):
+                    lab = f"{label} {tuple(x.shape)} a{tuple(a2.shape)} {fmt} {k2 is not None}"
+                    c, m = K.quant_pack_amax_tiles(x, a2, k2, fmt)
+                    bad, err = mismatches(c, R.quant_pack_tiles(x, a2, k2, fmt))
+                    worst["quant_pack_amax_tiles"] = max(worst["quant_pack_amax_tiles"], err)
+                    check(bad == 0, f"quant_pack_amax_tiles {lab}: {bad} codes differ")
+                    check(torch.equal(c, K.quant_pack_tiles(x, a2, k2, fmt)),
+                          f"quant_pack_amax_tiles {lab}: codes != quant_pack_tiles")
+                    check(torch.equal(m, rowmax), f"quant_pack_amax_tiles {lab}: rowmax")
+                for fmt in (FP4_E2M1, FP4_E3M0):
+                    lab = f"{label} {tuple(x.shape)} a{tuple(a2.shape)} {fmt} {k2 is not None}"
+                    c = K.quant_pack_sub_tiles(x, a2, k2, fmt)
+                    bad, err = mismatches(c, R.quant_pack_sub_tiles(x, a2, k2, fmt))
+                    worst["quant_pack_sub_tiles"] = max(worst["quant_pack_sub_tiles"], err)
+                    check(bad == 0, f"quant_pack_sub_tiles {lab}: {bad} codes differ")
+                    vals = K.unpack_sub_tiles(c, a2, fmt)
+                    bad, err = mismatches(vals, R.unpack_sub_tiles(c, a2, fmt))
+                    worst["unpack_sub_tiles"] = max(worst["unpack_sub_tiles"], err)
+                    check(bad == 0, f"unpack_sub_tiles {lab}: {bad} values differ")
+                    ca, m = K.quant_pack_sub_amax_tiles(x, a2, k2, fmt)
+                    bad, err = mismatches(ca, R.quant_pack_sub_amax_tiles(x, a2, k2, fmt)[0])
+                    worst["quant_pack_sub_amax_tiles"] = max(worst["quant_pack_sub_amax_tiles"],
+                                                             err)
+                    check(bad == 0 and torch.equal(ca, c),
+                          f"quant_pack_sub_amax_tiles {lab}: codes differ")
+                    check(torch.equal(m, rowmax), f"quant_pack_sub_amax_tiles {lab}: rowmax")
+                    q = K.fake_quant_tiles(x, a2, k2, fmt)
+                    aw = vals.abs()
+                    ulp = torch.nextafter(aw, torch.full_like(aw, math.inf)) - aw
+                    check(bool(((q - vals).abs() <= ulp).all()),
+                          f"unpack_sub_tiles {lab}: not within 1 ULP of fake_quant_tiles")
+                    n_cases += 1
+        print(f"[kernels] FP4 pair and amax encodes {label} {tuple(x.shape)}: both FP4 "
+              f"formats, E4M3/E5M2 amax, det and rand, alpha column and per element: ok")
+    print(f"[kernels] all kernels within bound ({n_cases} FP4 cases); max abs err {worst}")
     synchronize()
 
     # --- times at the main paths' shapes, and at a large ragged shape ----
@@ -293,6 +404,7 @@ def kernel_phase(dev) -> dict:
         xw, gw, bw = randn(wshape, 0.3), randn(wshape, 1.0), rbits(wshape)
         aw = xw.abs().max() * 0.8
         n, nt, rows, nw = x.numel(), xt.numel(), tile[0], xw.numel()
+        codes4 = K.quant_pack_sub_tiles(xt, col, key)
         cases = {
             "quant_det": (lambda: K.quant_det(x, a), lambda: R.quant_det(x, a),
                           8 * n + 4, 12 * n, act),
@@ -314,6 +426,7 @@ def kernel_phase(dev) -> dict:
             "quant_rand_bwd": (lambda: K.quant_rand_bwd(xw, aw, bw, gw),
                                lambda: R.quant_rand_bwd(xw, aw, bw, gw),
                                16 * nw + 8, 22 * nw, wshape),
+            **format_timing_cases(K, R, xt, col, key, codes4),
         }
         for name, (kern, twin, n_bytes, n_ops, shp) in cases.items():
             ms, plain_ms = time_ms(kern), time_ms(twin, reps=5, iters=10)
@@ -323,7 +436,45 @@ def kernel_phase(dev) -> dict:
                 shape=list(shp))
             print(f"[time] {name:17s} {label:5s} {str(shp):18s} kernel {ms:.5f} ms  "
                   f"twin {plain_ms:.5f} ms  bound {b_ms:.6f} ms ({b_by})")
+    # the format path's kernels also at the format ablation MLP's plane
+    xt = randn((9, 1024), 0.2)
+    col = xt.abs().amax(dim=1, keepdim=True) * 0.9
+    cases = format_timing_cases(K, R, xt, col, key, K.quant_pack_sub_tiles(xt, col, key))
+    for name, (kern, twin, n_bytes, n_ops, shp) in cases.items():
+        ms, plain_ms = time_ms(kern), time_ms(twin, reps=5, iters=10)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        timings[name]["mlp"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                    shape=list(shp))
+        print(f"[time] {name:17s} mlp   {str(shp):18s} kernel {ms:.5f} ms  "
+              f"twin {plain_ms:.5f} ms  bound {b_ms:.6f} ms ({b_by})")
     return {"worst": worst, "timings": timings}
+
+
+def format_timing_cases(K, R, xt, col, key, codes4) -> dict:
+    """Timing cases of the FP4 pair and the amax encodes on ``(R, 1024)``
+    tiles ``xt`` with an ``(R, 1)`` alpha column: ``name: (kernel, twin,
+    bytes, operations, shape)``. Bytes: each input read once (x at 4 B an
+    element, FP4 codes at half a byte, alpha 4 B a row, the key 8 B), each
+    output written once (FP4 codes half a byte, FP8 codes 1 B, values 4 B,
+    the row max 4 B a row)."""
+    from repro_torch.core.fp8 import FP4_E2M1
+
+    nt, rows, shp = xt.numel(), xt.shape[0], tuple(xt.shape)
+    return {
+        "quant_pack_sub_tiles": (lambda: K.quant_pack_sub_tiles(xt, col, key),
+                                 lambda: R.quant_pack_sub_tiles(xt, col, key, FP4_E2M1),
+                                 4.5 * nt + 4 * rows + 8, 40 * nt, shp),
+        "unpack_sub_tiles": (lambda: K.unpack_sub_tiles(codes4, col),
+                             lambda: R.unpack_sub_tiles(codes4, col, FP4_E2M1),
+                             4.5 * nt + 4 * rows, 12 * nt, shp),
+        "quant_pack_amax_tiles": (lambda: K.quant_pack_amax_tiles(xt, col, key),
+                                  lambda: R.quant_pack_amax_tiles(xt, col, key),
+                                  5 * nt + 8 * rows + 8, 41 * nt, shp),
+        "quant_pack_sub_amax_tiles": (lambda: K.quant_pack_sub_amax_tiles(xt, col, key),
+                                      lambda: R.quant_pack_sub_amax_tiles(xt, col, key,
+                                                                          FP4_E2M1),
+                                      4.5 * nt + 8 * rows + 8, 41 * nt, shp),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -378,12 +529,17 @@ def round_phase(dev) -> None:
     from repro_torch.core.server_opt import ServerOptConfig
 
     uqp = dict(server_opt=ServerOptConfig(enabled=True, gd_steps=5, lr=0.1, n_grid=20))
+    fp4_delayed = dict(down_codec="fp4_e2m1", up_codec="fp4_e2m1", down_scaling="delayed:4",
+                       up_scaling="delayed:4")
+    fp4_delta = dict(down_codec="fp4_e2m1", up_codec="delta:fp4_e2m1")
     for model, label, qcfg, strict, kw in (
             ("mlp", "mlp uq", QATConfig(), True, {}),
             ("lenet", "lenet weight QAT", QATConfig(quantize_acts=False), True, {}),
             ("lenet", "lenet full QAT", QATConfig(), False, {}),
             ("mlp", "mlp uq+", QATConfig(), True, uqp),
-            ("mlp", "mlp rand-qat", QATConfig(mode="rand"), True, {})):
+            ("mlp", "mlp rand-qat", QATConfig(mode="rand"), True, {}),
+            ("mlp", "mlp fp4 delayed:4", QATConfig(), True, fp4_delayed),
+            ("mlp", "mlp fp4 + delta:fp4 up", QATConfig(), True, fp4_delta)):
         cpu_sim, cpu_hist, draws = _small_round(model, "cpu", None, qcfg, **kw)
         gpu_sim, gpu_hist, _ = _small_round(model, dev, draws, qcfg, **kw)
         ref = dict(tree.flatten(cpu_sim.params))
@@ -420,10 +576,13 @@ PATH_KERNELS = {
 }
 
 
-def _make_sim(dev, task_name: str, method: str, sc: dict):
+def _make_sim(dev, task_name: str, method: str, sc: dict, **cfg_kw):
     """A ``FedSim`` for ``method`` on ``task_name`` built from the bench
-    drivers' pieces (``repro_torch.bench.common``) at scale ``sc``; returns
-    the simulator, its config and the test split."""
+    drivers' pieces (``repro_torch.bench.common``) at scale ``sc``, with
+    ``cfg_kw`` replacing fields of the method's config; returns the
+    simulator, its config and the test split."""
+    import dataclasses
+
     from repro_torch.bench import common
     from repro_torch.core.fedsim import FedSim
     from repro_torch.data import partition_iid
@@ -433,7 +592,8 @@ def _make_sim(dev, task_name: str, method: str, sc: dict):
     (x, y), (xt, yt) = common.make_data(task, sc["n_train"], sc["n_test"], seed=0)
     cx, cy, nk = partition_iid(x, y, k=sc["k"], seed=0)
     params, apply = common.make_model(task, 0, dev)
-    cfg = common.method_cfg(method, sc["k"], sc["c"], sc["local_steps"], sc["batch"])
+    cfg = dataclasses.replace(
+        common.method_cfg(method, sc["k"], sc["c"], sc["local_steps"], sc["batch"]), **cfg_kw)
     sim = FedSim(params, small.make_loss(apply), apply,
                  common.make_optimizer(task, params), cfg, cx, cy, nk, device=dev)
     return sim, cfg, (xt, yt)
@@ -510,12 +670,13 @@ def time_server_step(sim) -> None:
           f"{statistics.median(samples[1:]) * 1e3:.2f} ms (host clock, median of 5)")
 
 
-def profile_round(sim, s_round: float, label: str) -> None:
+def profile_round(sim, s_round: float, label: str) -> dict:
     """One more round of the same simulation under ``torch.profiler``: the
     device's busy time and the kernels that take it, by self device time.
     The profiler slows the host many times over, so the busy share is given
     against the unprofiled round time ``s_round`` as well as against the
-    profiled wall. Informational; nothing here is checked."""
+    profiled wall. Informational; nothing here is checked. Returns the
+    device us per launch of each of the port's kernels that ran."""
     from torch.profiler import ProfilerActivity, profile
 
     synchronize()
@@ -536,11 +697,127 @@ def profile_round(sim, s_round: float, label: str) -> None:
         print(f"[profile]   {dev_time(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
     ours = ("quant_det_kernel", "quant_det_bwd_kernel", "sum_partials_kernel",
             "quant_pack_kernel", "unpack_kernel", "fake_quant_kernel",
-            "quant_rand_kernel", "quant_rand_bwd_kernel")
+            "quant_rand_kernel", "quant_rand_bwd_kernel", "quant_pack_sub_kernel",
+            "unpack_sub_kernel", "quant_pack_amax_kernel")
+    per_launch = {}
     for e in rows:
-        if e.key.startswith(ours):
-            print(f"[profile] ours: {e.key.split('(')[0]:22s} x{e.count:<5d} "
-                  f"{dev_time(e) / max(e.count, 1):.2f} us of device time per launch")
+        name = e.key.removeprefix("void ").split("(")[0]  # a template: "void f<1>(...)"
+        if name.split("<")[0] in ours:
+            per_launch[name] = dev_time(e) / max(e.count, 1)
+            print(f"[profile] ours: {name:22s} x{e.count:<5d} "
+                  f"{per_launch[name]:.2f} us of device time per launch")
+    return per_launch
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the format ablation (codecs and scaling policies)
+# ---------------------------------------------------------------------------
+
+
+def _cell_kernels(kw: dict) -> tuple[set, set]:
+    """The wire kernels a cell with FedConfig overrides ``kw`` must launch,
+    and the amax encodes it must not: an FP4 leg runs the FP4 pair, an FP8
+    leg the FP8 pair; a delayed leg encodes with its format's amax kernel."""
+    must, never = set(), set()
+    if kw.get("comm_mode") == "none":
+        return must, {"quant_pack_tiles", "unpack_tiles", *FORMAT_KERNELS}
+    for leg in ("down", "up"):
+        codec = kw.get(f"{leg}_codec") or "e4m3"
+        fp4 = "fp4" in codec
+        delayed = str(kw.get(f"{leg}_scaling") or "").startswith("delayed")
+        must.add("unpack_sub_tiles" if fp4 else "unpack_tiles")
+        if delayed:
+            must.add("quant_pack_sub_amax_tiles" if fp4 else "quant_pack_amax_tiles")
+        else:
+            must.add("quant_pack_sub_tiles" if fp4 else "quant_pack_tiles")
+    if not any(str(kw.get(f"{leg}_scaling") or "").startswith("delayed")
+               for leg in ("down", "up")):
+        never |= {"quant_pack_amax_tiles", "quant_pack_sub_amax_tiles"}
+    return must, never
+
+
+def _wire_launches(launches: dict) -> dict:
+    """The launches of a cell without the QAT pair's (every cell has those)."""
+    return {k: v for k, v in launches.items()
+            if v and k not in ("quant_det", "quant_det_bwd")}
+
+
+def _check_cell_launches(label: str, kw: dict, launches: dict) -> None:
+    must, never = _cell_kernels(kw)
+    for name in must:
+        check(launches[name] > 0, f"{label}: kernel {name} was not launched")
+    for name in never:
+        check(launches[name] == 0, f"{label}: kernel {name} launched {launches[name]} times")
+
+
+def format_phase(dev) -> dict:
+    """The format ablation's 18 cells on the MLP, then the four cifar10-lenet
+    format cells; every cell with the launch counters zeroed just before and
+    read just after. Returns the launches summed over the cells and, per
+    profiled cell, the device time per launch of each of the port's kernels."""
+    from repro_torch.bench import format_ablation, table1
+    from repro_torch.kernels import fp8_quant as K
+
+    total = dict.fromkeys(K.KERNELS, 0)
+    t0 = time.perf_counter()
+    cells = format_ablation.cells()
+    rows = format_ablation.iter_rows(device=dev)
+    n_rounds = format_ablation.DEFAULT["rounds"]
+    for _, _, kw in cells:
+        K.reset_launches()
+        synchronize()
+        r = next(rows)                   # runs this cell
+        synchronize()
+        launches = dict(K.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        name, want = r["comm_fmt"], FORMAT_BYTES[r["comm_fmt"]]
+        print(f"[format] {name:34s} {n_rounds} rounds: final_acc {r['final_acc']:.4f} "
+              f"bytes/round {r['round_bytes']} comm_gain {r['comm_gain_vs_fp32']} "
+              f"wall {r['wall_s']:.2f} s wire launches {_wire_launches(launches)}")
+        check(r["round_bytes"] == want, f"{name}: bytes/round {r['round_bytes']} != {want}")
+        check(0.0 <= r["final_acc"] <= 1.0, f"{name}: accuracy {r['final_acc']}")
+        _check_cell_launches(name, kw, launches)
+    check(next(rows, None) is None, "format ablation: more rows than cells")
+    print(f"[format] ablation: {len(cells)} cells in {time.perf_counter() - t0:.1f} s")
+
+    # full-width cifar10-lenet at the Table 1 budget
+    sc = table1.CPU_BUDGET
+    device_us = {}
+    for i, (label, kw, want) in enumerate(LENET_FORMAT_CELLS):
+        sim, cfg, (xt, yt) = _make_sim(dev, "cifar10-lenet", "uq", sc, **kw)
+        check(sim.bytes_per_round == want,
+              f"lenet {label}: bytes/round {sim.bytes_per_round} != {want}")
+        K.reset_launches()
+        synchronize()
+        t0 = time.perf_counter()
+        hist = sim.run(FORMAT_ROUNDS, seed=0, eval_data=(xt, yt), eval_every=FORMAT_ROUNDS)
+        synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        _check_cell_launches(f"lenet {label}", kw, launches)
+        check(hist.cumulative_bytes == [FORMAT_ROUNDS * want], f"lenet {label}: bytes")
+        check(all(math.isfinite(v) for v in hist.loss), f"lenet {label}: loss {hist.loss}")
+        for v in sim.state.params.values():
+            for leaf in v.values():
+                check(bool(torch.isfinite(leaf).all()), f"lenet {label}: non-finite parameter")
+        t0 = time.perf_counter()
+        sim.evaluate(xt, yt)
+        synchronize()
+        s_round = (wall - (time.perf_counter() - t0)) / FORMAT_ROUNDS
+        acc = hist.accuracy[-1]
+        print(f"[format] cifar10-lenet {label:30s} {FORMAT_ROUNDS} rounds: final_acc {acc:.4f} "
+              f"bytes/round {sim.bytes_per_round} comm_gain "
+              f"{GRID_BYTES[('cifar10-lenet', 'fp32')] / sim.bytes_per_round:.3f} "
+              f"wall {wall:.2f} s, {s_round:.3f} s/round (eval excluded) "
+              f"wire launches {_wire_launches(launches)}")
+        if i != 1:      # (b) runs no kernel that (a) does not
+            device_us[label] = profile_round(sim, s_round, f"lenet {label}")
+    for name in FORMAT_KERNELS:
+        check(total[name] > 0, f"kernel {name} was not launched on the format path")
+    return {"launches": total, "device_us": device_us}
 
 
 # ---------------------------------------------------------------------------
@@ -625,24 +902,34 @@ def main() -> int:
     round_phase(dev)
     main_path_phase(dev, "uq")
     uqp = main_path_phase(dev, "uq+")
+    fmt = format_phase(dev)
     grid = grid_phase(dev)
 
-    path_launches = {name: (grid["launches"][name] if name.startswith("quant_rand")
-                            else uqp["launches"][name]) for name in K.KERNELS}
+    def path(name: str) -> tuple[str, dict]:
+        if name in FORMAT_KERNELS:
+            return "format ablation (18 MLP cells, 4 cifar10-lenet cells)", fmt
+        if name.startswith("quant_rand"):
+            return "table2 rand-qat", grid
+        return "cifar10-lenet uq+", uqp
+
     rows = []
     for name in K.KERNELS:
         t = kern["timings"][name]["main"]
         source, line = KERNEL_INFO[name]
+        label, run = path(name)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/fp8_quant.py:{line}",
-            "launches": path_launches[name],
-            "path": "table2 rand-qat" if name.startswith("quant_rand") else "cifar10-lenet uq+",
+            "launches": run["launches"][name],
+            "path": label,
             "max_abs_err": kern["worst"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
             "large": kern["timings"][name]["large"],
+            **({"mlp": kern["timings"][name]["mlp"],
+                "device_us": fmt["device_us"][PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}
+               if name in FORMAT_KERNELS else {}),
         })
     print(f"[setup] whole run {time.perf_counter() - t_start:.1f} s")
     print(f"[setup] {smi}")

@@ -4,9 +4,12 @@ Algorithm 1 as four stage objects:
 
 * **ClientSampler** — ``UniformSampler`` (uniform without replacement, the
   paper's P_t).
-* **Link** — ``WireLink``: one ``core.codec`` codec per direction. The
-  downlink broadcast is one encode + one decode; the uplink encodes and
-  decodes each client's model with its own key.
+* **Link** — ``WireLink``: one ``core.codec`` codec and one
+  ``core.scaling`` policy per direction. The downlink broadcast is one
+  encode + one decode; the uplink encodes and decodes each client's model
+  with its own key, against the decoded broadcast as the reference model
+  of a delta leg. A delayed-scaling leg encodes at the scales of its amax
+  history (``ServerState.scales``) and appends the amax its encode emits.
 * **ClientExecutor** — ``VmapExecutor``: every cohort client runs
   ``LocalUpdate`` (a Python loop over the cohort stands in for ``vmap``).
 * **Aggregator** — ``MeanAggregator``: the n_k-weighted mean (UQ), or
@@ -24,8 +27,8 @@ stochastic QAT, a source of each weight site's random bits.
 hand in the reference's draws instead.
 
 Not ported yet: the weighted/fixed samplers, the chunked and sharded
-executors, the stateful aggregators, faults, codec schedules, scaling
-policies and error feedback.
+executors, the stateful aggregators, faults, codec schedules, entropy
+coding and error feedback.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ import torch
 
 from . import codec as codec_lib
 from . import metrics, wire
-from .codec import WireCodec
+from . import scaling as scaling_lib
+from .codec import DeltaCodec, Fp8Codec, WireCodec
 from .fp8 import E4M3, FP8Format
 from .plane import nelem
 from .qat import BitsFn, QATConfig
@@ -51,18 +55,21 @@ LossFn = Callable[..., torch.Tensor]  # (params, x, y, qat_cfg[, bits=]) -> scal
 
 
 class ServerState(NamedTuple):
-    """What the server carries between rounds: the model + aggregator state."""
+    """What the server carries between rounds: the model, the aggregator
+    state and the scaling state (a ``(down, up)`` pair of amax histories,
+    ``()`` unless a leg scales away from ``current``)."""
 
     params: dict
     opt: Any = ()
+    scales: Any = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
     """One federated experiment: the fields of the reference's ``FedConfig``
     that the port reads, with the same defaults. The reference's other
-    fields (samplers, chunking, meshes, codecs, scaling, faults) are not
-    accepted yet."""
+    fields (samplers, chunking, meshes, codec schedules, the per-leg legacy
+    ``fmt``/``mode`` knobs, faults) are not accepted yet."""
 
     n_clients: int = 100          # K
     participation: float = 0.1    # C
@@ -75,6 +82,14 @@ class FedConfig:
     # ``ServerOptConfig.enabled``), so that parity tests build both configs
     # field for field; ``server_opt=None`` would say the same with one fewer
     server_opt: ServerOptConfig = ServerOptConfig(enabled=False)
+    # wire codecs per leg (a WireCodec or a registry name: 'e4m3', 'fp4',
+    # 'delta:fp4_e2m1', ...); None resolves (fmt, comm_mode) as before
+    down_codec: Any = None
+    up_codec: Any = None
+    # scaling policies per leg ('current' | 'delayed[:H[:M]]' | 'frozen' or a
+    # ScalingPolicy); None is 'current', the trained-alpha wire
+    down_scaling: Any = None
+    up_scaling: Any = None
 
     def __post_init__(self):
         if self.n_clients <= 0:
@@ -90,24 +105,48 @@ class FedConfig:
         if not isinstance(self.server_opt, ServerOptConfig):
             raise TypeError("FedConfig.server_opt must be a ServerOptConfig, got "
                             f"{type(self.server_opt).__name__}")
+        # eager resolution: a typo'd or unported codec or policy fails here
+        for c in (self.down_codec, self.up_codec):
+            if c is not None:
+                codec_lib.get_codec(c)
+        scaling_lib.get_policy(self.down_scaling)
+        scaling_lib.get_policy(self.up_scaling)
 
     @property
     def clients_per_round(self) -> int:
         return max(1, int(round(self.n_clients * self.participation)))
 
-    @property
-    def resolved_down_codec(self) -> WireCodec:
+    def _resolved_codec(self, explicit) -> WireCodec:
+        if explicit is not None:
+            return codec_lib.get_codec(explicit)
         return codec_lib.codec_for(self.fmt, self.comm_mode)
 
     @property
+    def resolved_down_codec(self) -> WireCodec:
+        return self._resolved_codec(self.down_codec)
+
+    @property
     def resolved_up_codec(self) -> WireCodec:
-        return codec_lib.codec_for(self.fmt, self.comm_mode)
+        return self._resolved_codec(self.up_codec)
+
+    @property
+    def resolved_down_scaling(self) -> scaling_lib.ScalingPolicy:
+        return scaling_lib.get_policy(self.down_scaling)
+
+    @property
+    def resolved_up_scaling(self) -> scaling_lib.ScalingPolicy:
+        return scaling_lib.get_policy(self.up_scaling)
 
     @property
     def uses_server_opt(self) -> bool:
         """The UQ+ tail runs when enabled on a quantized link (the
-        reference's ``resolved_aggregator == 'server_opt'``)."""
-        return self.server_opt.enabled and self.comm_mode != "none"
+        reference's ``resolved_aggregator == 'server_opt'``: ``comm_mode``
+        gates it, or the downlink codec when one is named)."""
+        if not self.server_opt.enabled:
+            return False
+        if self.down_codec is None:
+            return self.comm_mode != "none"
+        return self.resolved_down_codec.quantized
 
 
 class QatBitsSource(Protocol):
@@ -233,29 +272,108 @@ class UniformSampler:
 
 
 def _codec_transit(codec: WireCodec, params: dict, spec: wire.WireSpec,
-                   key2: torch.Tensor) -> dict:
+                   key2: torch.Tensor, ref: dict | None = None) -> dict:
     """One leg through ``codec``: what a receiver of the payload observes."""
     if not (codec.quantized and spec.q_slots):
         return params
-    return codec.decode(codec.encode(params, spec, key2), spec)
+    return codec.decode(codec.encode(params, spec, key2, ref=ref), spec, ref=ref)
 
 
 @dataclasses.dataclass(frozen=True)
 class WireLink:
-    """Both legs of the model exchange, each a ``WireCodec``."""
+    """Both legs of the model exchange, each a ``WireCodec`` (an instance or a
+    registry name) with a ``ScalingPolicy`` (an instance or a spec string;
+    None is ``'current'``).
 
-    down_codec: WireCodec = codec_lib.Fp8Codec()
-    up_codec: WireCodec = codec_lib.Fp8Codec()
+    A non-current policy needs a grid codec (``Fp8Codec``/``PackedFpCodec``)
+    on its leg; ``'frozen'`` is downlink-only, and so is no ``DeltaCodec``:
+    a client joining the round holds no reference model.
+    """
+
+    down_codec: Any = codec_lib.Fp8Codec()
+    up_codec: Any = codec_lib.Fp8Codec()
+    down_scaling: Any = None
+    up_scaling: Any = None
+
+    def __post_init__(self):
+        down, up = codec_lib.get_codec(self.down_codec), codec_lib.get_codec(self.up_codec)
+        if isinstance(down, DeltaCodec):
+            raise ValueError("DeltaCodec cannot run on the downlink: the receiver (a "
+                             "client joining the round) holds no reference model. Use "
+                             "it on the uplink, where the reference is the broadcast.")
+        down_p = scaling_lib.get_policy(self.down_scaling)
+        up_p = scaling_lib.get_policy(self.up_scaling)
+        for leg, pol, c in (("down", down_p, down), ("up", up_p, up)):
+            if not pol.is_current and not isinstance(c, Fp8Codec):
+                raise ValueError(
+                    f"{leg}_scaling={pol.name!r} needs a plain FP8-family {leg}link "
+                    f"codec (Fp8Codec/PackedFpCodec), got {type(c).__name__}")
+        if isinstance(up_p, scaling_lib.PerRoundFrozenScaling):
+            raise ValueError("up_scaling='frozen' is unsupported: the server holds no "
+                             "earlier copy of a client's model whose scales it could "
+                             "reuse; use 'delayed' on the uplink")
+        object.__setattr__(self, "down_c", down)
+        object.__setattr__(self, "up_c", up)
+        object.__setattr__(self, "down_p", down_p)
+        object.__setattr__(self, "up_p", up_p)
+
+    @property
+    def scaled(self) -> bool:
+        """True when any leg scales away from ``current``."""
+        return not (self.down_p.is_current and self.up_p.is_current)
+
+    def scales_init(self, params: dict, spec: wire.WireSpec | None = None):
+        """Initial ``ServerState.scales``: a ``(down, up)`` state pair seeded
+        from the model's trained clip alphas (``()`` per stateless leg)."""
+        if not self.scaled:
+            return ()
+        spec = spec or wire.make_wire_spec(params)
+        a0 = scaling_lib.leaf_alphas(params, spec)
+        return self.down_p.init_state(a0), self.up_p.init_state(a0)
 
     def down(self, params: dict, spec: wire.WireSpec, key2: torch.Tensor) -> dict:
         """Server -> cohort broadcast: one encode, one decode."""
-        return _codec_transit(self.down_codec, params, spec, key2)
+        return _codec_transit(self.down_c, params, spec, key2)
 
     def up(self, client_params: list[dict], spec: wire.WireSpec,
-           keys: torch.Tensor) -> list[dict]:
-        """Cohort -> server: one independent payload per client."""
-        return [_codec_transit(self.up_codec, p, spec, k)
+           keys: torch.Tensor, ref: dict | None = None) -> list[dict]:
+        """Cohort -> server: one independent payload per client; ``ref`` is
+        the round's reference model (the decoded broadcast)."""
+        return [_codec_transit(self.up_c, p, spec, k, ref=ref)
                 for p, k in zip(client_params, keys)]
+
+    def down_scaled(self, params: dict, spec: wire.WireSpec, key2: torch.Tensor, st):
+        """Scaled broadcast: ``(received_tree, new_state)``. A delayed leg
+        encodes at its history's effective scales and appends the per-leaf
+        amax its encode launch emitted; a frozen leg encodes at the trained
+        alphas, ships no alpha riders, and the receiver splices its own back."""
+        c, pol = self.down_c, self.down_p
+        if not spec.q_slots:
+            return params, st
+        if isinstance(pol, scaling_lib.PerRoundFrozenScaling):
+            scaling_lib.require_column_alphas(spec, pol)
+            alphas = scaling_lib.leaf_alphas(params, spec)
+            payload = c.encode_scaled(params, spec, key2, alphas, drop_alphas=True)
+            return c.decode_scaled(payload, spec, alphas=alphas, dropped=True), st
+        payload, amax = c.encode_scaled(params, spec, key2, pol.effective(st),
+                                        with_amax=True)
+        return c.decode_scaled(payload, spec), pol.update(st, amax)
+
+    def up_scaled(self, client_params: list[dict], spec: wire.WireSpec,
+                  keys: torch.Tensor, st):
+        """Scaled uplink: ``(msgs, up_amax)``. Every client encodes at the
+        same effective scales (the server's history); ``up_amax`` is the
+        ``(cohort, n_q)`` per-client amax for the caller's history update."""
+        c, pol = self.up_c, self.up_p
+        if not spec.q_slots:
+            return client_params, st.new_zeros((len(client_params), 0))
+        a_eff = pol.effective(st)
+        msgs, amax = [], []
+        for p, k in zip(client_params, keys):
+            payload, am = c.encode_scaled(p, spec, k, a_eff, with_amax=True)
+            msgs.append(c.decode_scaled(payload, spec))
+            amax.append(am)
+        return msgs, torch.stack(amax)
 
 
 class VmapExecutor:
@@ -320,14 +438,16 @@ class RoundEngine:
         self.device = resolve_device(device)
         self.cohort = cfg.clients_per_round
         self.sampler = UniformSampler(cfg.n_clients, self.cohort)
-        self.link = WireLink(cfg.resolved_down_codec, cfg.resolved_up_codec)
+        self.link = WireLink(cfg.resolved_down_codec, cfg.resolved_up_codec,
+                             cfg.resolved_down_scaling, cfg.resolved_up_scaling)
         self.executor = VmapExecutor()
         self.aggregator = (ServerOptAggregator(cfg.server_opt) if cfg.uses_server_opt
                            else MeanAggregator())
         self._local_update = make_local_update(loss_fn, optimizer, cfg)
 
     def init(self, params: dict) -> ServerState:
-        return ServerState(params=params, opt=self.aggregator.init(params))
+        return ServerState(params=params, opt=self.aggregator.init(params),
+                           scales=self.link.scales_init(params))
 
     def round_bytes(self, params: dict) -> int:
         """Static per-round wire bytes: P x (down leg + up leg)."""
@@ -354,16 +474,28 @@ class RoundEngine:
 
     def round_fn(self, state: ServerState, data, labels, nk, draws: RoundDraws):
         d = draws.to(self.device)
+        link = self.link
         server_params = state.params
         spec = wire.make_wire_spec(server_params)
         idx = d.cohort
+        st_down, st_up = state.scales if link.scaled else ((), ())
         # --- stage 2a: downlink ------------------------------------------
-        down = self.link.down(server_params, spec, d.down_key)
+        if link.down_p.is_current:
+            down = link.down(server_params, spec, d.down_key)
+        else:
+            down, st_down = link.down_scaled(server_params, spec, d.down_key, st_down)
         # --- stage 3: local QAT training over the cohort -----------------
         client_params, losses = self.executor(
             self._local_update, down, data[idx], labels[idx], d.batches, d.qat_bits)
         # --- stage 2b: uplink --------------------------------------------
-        msgs = self.link.up(client_params, spec, d.up_keys)
+        # the decoded broadcast is the round's reference model: every client
+        # trained from it, so a delta uplink codes the residual against it
+        if link.up_p.is_current:
+            msgs = link.up(client_params, spec, d.up_keys, ref=down)
+        else:
+            msgs, up_amax = link.up_scaled(client_params, spec, d.up_keys, st_up)
+            # next round's uplink scales come from what the server received
+            st_up = link.up_p.update(st_up, torch.amax(up_amax, dim=0))
         # --- stage 4: server aggregation ---------------------------------
         new_params, new_opt = self.aggregator(server_params, msgs, nk[idx], d,
                                               state.opt)
@@ -371,4 +503,5 @@ class RoundEngine:
             "local_loss": torch.mean(losses),
             "wire_bytes": self.round_bytes(server_params),
         }
-        return ServerState(new_params, new_opt), metrics
+        return ServerState(new_params, new_opt,
+                           (st_down, st_up) if link.scaled else ()), metrics

@@ -56,12 +56,22 @@ class FP8Format:
 
 E4M3 = FP8Format(exp=4, mant=3)
 E5M2 = FP8Format(exp=5, mant=2)
+# Sub-byte ExMy formats on the same parametric grid; the wire packs two codes
+# per byte (``kernels.fp8_quant.quant_pack_sub_tiles``, ``core.codec.PackedFpCodec``).
+# E3M0 has no mantissa bit: mant_scale 1, mant_const 0, every nonzero code normal.
+FP4_E2M1 = FP8Format(exp=2, mant=1)
+FP4_E3M0 = FP8Format(exp=3, mant=0)
 
 
 def exponent_bias(alpha: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
     """Flexible exponent bias b for clipping value alpha (paper, below Eq. 2)."""
     alpha = torch.clamp(alpha, min=_ALPHA_FLOOR)
     return 2.0 ** fmt.exp - torch.log2(alpha) + fmt.mant_const - 1.0
+
+
+def alpha_from_bias(b: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Inverse of :func:`exponent_bias`."""
+    return torch.exp2(2.0 ** fmt.exp - 1.0 - b) * fmt.mant_scale
 
 
 def _scale(x: torch.Tensor, alpha: torch.Tensor, fmt: FP8Format) -> torch.Tensor:

@@ -29,20 +29,20 @@ def f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
-def tiles(pieces: list[torch.Tensor], fill) -> torch.Tensor:
-    """Stack 1-D pieces into the (rows, LANE) tile layout.
+def tiles(pieces: list[torch.Tensor], fill, width: int = LANE) -> torch.Tensor:
+    """Stack 1-D pieces into the (rows, width) tile layout.
 
-    Each piece is padded with ``fill`` to a whole number of LANE-wide rows
-    and the rows are concatenated; padding never reaches consumers, which
-    slice rows back to exact element counts.
+    Each piece is padded with ``fill`` to a whole number of ``width``-wide
+    rows and the rows are concatenated; padding never reaches consumers,
+    which slice rows back to exact element counts.
     """
-    rows = [-(-p.numel() // LANE) for p in pieces]
-    out = torch.full((sum(rows), LANE), fill, dtype=pieces[0].dtype,
+    rows = [-(-p.numel() // width) for p in pieces]
+    out = torch.full((sum(rows), width), fill, dtype=pieces[0].dtype,
                      device=pieces[0].device)
     flat = out.view(-1)
     r0 = 0
     for p, r in zip(pieces, rows):
-        flat[r0 * LANE:r0 * LANE + p.numel()] = p
+        flat[r0 * width:r0 * width + p.numel()] = p
         r0 += r
     return out
 

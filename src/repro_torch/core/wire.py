@@ -1,20 +1,26 @@
-"""Flat-buffer FP8 wire codec, the port of ``repro.core.wire``.
+"""Flat-buffer wire codec, the port of ``repro.core.wire``.
 
 Every weight tensor that carries a paired clipping value is laid into ONE
 ``(rows, LANE)`` f32 tile buffer (each leaf starting on a row boundary),
-quantized + bit-packed by one ``quant_pack_tiles`` launch into a uint8
-payload — the bytes that cross the federated wire — and decoded by one
-``unpack_tiles`` launch on receipt.
+quantized + bit-packed by one encode launch into a uint8 payload — the
+bytes that cross the federated wire — and decoded by one launch on receipt.
+The format picks the kernels: an 8-bit format packs 1 code per byte
+(``quant_pack_tiles`` / ``unpack_tiles``), a sub-byte one ``8 // bits``
+(FP4: ``quant_pack_sub_tiles`` / ``unpack_sub_tiles``).
 
-``payload = {"codes": u8[total], "other": (leaf, ...)}``: ``codes`` holds
-exactly one byte per quantized element (tile padding sliced off); ``other``
-holds every non-quantized leaf (biases, norms, the clipping values) in flat
-order, transmitted FP32.
+``payload = {"codes": u8[n], "other": (leaf, ...)}``: ``codes`` holds each
+quantized leaf's ``ceil(elements / codes_per_byte)`` bytes (tile padding
+sliced off); ``other`` holds every non-quantized leaf (biases, norms, the
+clipping values) in flat order, transmitted FP32.
 
 Flat order is JAX's pytree order (dict keys sorted; ``tree.flatten``), so
 ``WireSpec`` and the payload bytes line up with the reference's. Where the
 reference draws the stochastic-rounding key words from a ``jax.random`` key
 (``key_data(key)[:2]``), the port takes the two u32 words directly.
+
+The codecs of ``core.codec`` compose the tile-level steps below
+(:func:`pack`, :func:`assemble`) with their own clip columns: explicit
+scales for ``core.scaling``, the residual's clips for the delta codec.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from .fp8 import E4M3, FP8Format
 from .plane import LANE, f32, nelem, tiles
 from .. import tree
 from ..kernels import dispatch
+from ..kernels.ref import codes_per_byte
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +53,7 @@ class WireSpec:
     alpha_pos: tuple[int, ...]         # index into `other` of each leaf's alpha
     n_other_elems: int
     alpha_cols_ok: bool = False        # every alpha scalar -> (R, 1) column
+    alpha_shapes: tuple = ()           # per-leaf alpha shape (frozen splice-back)
 
     @property
     def n_leaves(self) -> int:
@@ -89,22 +97,99 @@ def make_wire_spec(params: dict) -> WireSpec:
         alpha_pos=tuple(alpha_pos),
         n_other_elems=sum(flat[i][1].numel() for i in other_slots),
         alpha_cols_ok=all(flat[other_slots[ai]][1].numel() == 1 for ai in alpha_pos),
+        alpha_shapes=tuple(tuple(flat[other_slots[ai]][1].shape) for ai in alpha_pos),
     )
 
 
-def _alpha_tiles(other: tuple, spec: WireSpec) -> torch.Tensor:
+def alpha_column(alphas: torch.Tensor, spec: WireSpec) -> torch.Tensor:
+    """``(n_q,)`` per-leaf clipping scalars -> floored ``(n_rows, 1)`` column."""
+    a = torch.clamp(f32(alphas).reshape(-1), min=fp8._ALPHA_FLOOR)
+    return torch.repeat_interleave(a, torch.tensor(spec.q_rows, device=a.device)
+                                   ).reshape(-1, 1)
+
+
+def alpha_tiles(other: tuple, spec: WireSpec) -> torch.Tensor:
     """Floored clipping values for the tile layout: a per-ROW ``(n_rows, 1)``
     column when every alpha is a scalar, else per-element ``(n_rows, LANE)``."""
     if spec.alpha_cols_ok:
-        a = torch.stack([f32(other[ai]).reshape(()) for ai in spec.alpha_pos])
-        a = torch.clamp(a, min=fp8._ALPHA_FLOOR)
-        rows = torch.tensor(spec.q_rows, device=a.device)
-        return torch.repeat_interleave(a, rows).reshape(-1, 1)
+        return alpha_column(torch.stack([f32(other[ai]).reshape(())
+                                         for ai in spec.alpha_pos]), spec)
     parts = [
         torch.clamp(f32(other[ai]), min=fp8._ALPHA_FLOOR).expand(shape).reshape(-1)
         for shape, ai in zip(spec.q_shapes, spec.alpha_pos)
     ]
     return tiles(parts, 1.0)
+
+
+def code_sizes(spec: WireSpec, fmt: FP8Format = E4M3) -> list[int]:
+    """Payload bytes of each quantized leaf: ``ceil(elements / codes_per_byte)``."""
+    k = codes_per_byte(fmt)
+    return [-(-nelem(s) // k) for s in spec.q_shapes]
+
+
+def payload_nbytes(spec: WireSpec, fmt: FP8Format = E4M3) -> int:
+    """Exact wire bytes of one encoded model copy (u8 codes + FP32 riders)."""
+    return sum(code_sizes(spec, fmt)) + 4 * spec.n_other_elems
+
+
+def weight_tiles(leaves: list, spec: WireSpec) -> torch.Tensor:
+    """The quantized leaves in the ``(n_rows, LANE)`` tile layout, zero-filled."""
+    return tiles([f32(leaves[i]).reshape(-1) for i in spec.q_slots], 0.0)
+
+
+def segment_amax(rowmax: torch.Tensor, spec: WireSpec) -> torch.Tensor:
+    """Per-row ``|x|`` maxima -> per-quantized-leaf ``(n_q,)`` amax. Equal to
+    a per-leaf flat max: the zero fill never exceeds a row's abs-max and
+    float max is exact in any order."""
+    rm = rowmax.reshape(-1)
+    return torch.stack([torch.amax(rm[r0:r0 + rows])
+                        for r0, rows in zip(spec.q_row_offsets, spec.q_rows)])
+
+
+def pack(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,
+         spec: WireSpec, fmt: FP8Format, with_amax: bool = False):
+    """Tiles -> the flat payload codes, one encode launch (``key2`` None is
+    deterministic rounding). ``with_amax=True`` takes the fused variant and
+    also returns the per-leaf raw ``max|x|`` of ``x2`` (delayed scaling)."""
+    sub = codes_per_byte(fmt) > 1
+    if with_amax:
+        kern = dispatch.quant_pack_sub_amax_tiles if sub else dispatch.quant_pack_amax_tiles
+        codes2, rowmax = kern(x2, a2, key2, fmt=fmt)
+    else:
+        kern = dispatch.quant_pack_sub_tiles if sub else dispatch.quant_pack_tiles
+        codes2 = kern(x2, a2, key2, fmt=fmt)
+    codes = torch.cat([codes2[r0:r0 + rows].reshape(-1)[:n] for r0, rows, n
+                       in zip(spec.q_row_offsets, spec.q_rows, code_sizes(spec, fmt))])
+    return (codes, segment_amax(rowmax, spec)) if with_amax else codes
+
+
+def assemble(codes: torch.Tensor, other: tuple, a2: torch.Tensor | None,
+             spec: WireSpec, fmt: FP8Format, ref: dict | None = None) -> dict:
+    """Payload codes + FP32 riders -> the full param tree, one decode launch
+    at clip tiles ``a2``. With ``ref`` the codes are a residual: each decoded
+    leaf is added to ``ref``'s."""
+    out: list = [None] * spec.n_leaves
+    for slot, leaf in zip(spec.other_slots, other):
+        out[slot] = leaf
+    if spec.q_slots:
+        k = codes_per_byte(fmt)
+        offs = [0]
+        for n in code_sizes(spec, fmt):
+            offs.append(offs[-1] + n)
+        c2 = tiles([codes[o0:o1] for o0, o1 in zip(offs, offs[1:])], 0, LANE // k)
+        unpack = dispatch.unpack_sub_tiles if k > 1 else dispatch.unpack_tiles
+        vals2 = unpack(c2, a2, fmt=fmt)
+        rleaves = None if ref is None else tree.leaves(ref)
+        for qi, slot in enumerate(spec.q_slots):
+            v = tiles_to_leaf(vals2, spec, qi)
+            out[slot] = v if rleaves is None else f32(rleaves[slot]) + v
+    return tree.unflatten(list(spec.names), out)
+
+
+def tiles_to_leaf(vals2: torch.Tensor, spec: WireSpec, qi: int) -> torch.Tensor:
+    """Slice quantized leaf ``qi`` out of a decoded tile buffer."""
+    r0, rows, shape = spec.q_row_offsets[qi], spec.q_rows[qi], spec.q_shapes[qi]
+    return vals2[r0:r0 + rows].reshape(-1)[:nelem(shape)].reshape(shape)
 
 
 def encode(params: dict, spec: WireSpec, key2: torch.Tensor | None,
@@ -119,44 +204,13 @@ def encode(params: dict, spec: WireSpec, key2: torch.Tensor | None,
     if not spec.q_slots:
         return {"codes": torch.zeros(0, dtype=torch.uint8, device=leaves[0].device),
                 "other": other}
-    x2 = tiles([f32(leaves[i]).reshape(-1) for i in spec.q_slots], 0.0)
-    a2 = _alpha_tiles(other, spec)
-    codes2 = dispatch.quant_pack_tiles(x2, a2, key2 if mode == "rand" else None,
-                                       fmt=fmt)
-    codes = torch.cat([
-        codes2[r0:r0 + rows].reshape(-1)[:nelem(shape)]
-        for r0, rows, shape in zip(spec.q_row_offsets, spec.q_rows, spec.q_shapes)
-    ])
+    codes = pack(weight_tiles(leaves, spec), alpha_tiles(other, spec),
+                 key2 if mode == "rand" else None, spec, fmt)
     return {"codes": codes, "other": other}
-
-
-def decode_tiles(codes: torch.Tensor, other: tuple, spec: WireSpec,
-                 fmt: FP8Format = E4M3) -> torch.Tensor:
-    """Exact codes -> dequantized values in the (n_rows, LANE) tile layout."""
-    c2 = tiles([codes[off:off + nelem(shape)]
-                for off, shape in zip(spec.q_offsets, spec.q_shapes)], 0)
-    return dispatch.unpack_tiles(c2, _alpha_tiles(other, spec), fmt=fmt)
-
-
-def tiles_to_leaf(vals2: torch.Tensor, spec: WireSpec, qi: int) -> torch.Tensor:
-    """Slice quantized leaf ``qi`` out of a decoded tile buffer."""
-    r0, rows, shape = spec.q_row_offsets[qi], spec.q_rows[qi], spec.q_shapes[qi]
-    return vals2[r0:r0 + rows].reshape(-1)[:nelem(shape)].reshape(shape)
 
 
 def decode(payload: dict, spec: WireSpec, fmt: FP8Format = E4M3) -> dict:
     """Unpack a wire payload back into the full param tree (one kernel launch)."""
     other = tuple(payload["other"])
-    out: list = [None] * spec.n_leaves
-    for slot, leaf in zip(spec.other_slots, other):
-        out[slot] = leaf
-    if spec.q_slots:
-        vals2 = decode_tiles(payload["codes"], other, spec, fmt)
-        for qi, slot in enumerate(spec.q_slots):
-            out[slot] = tiles_to_leaf(vals2, spec, qi)
-    return tree.unflatten(list(spec.names), out)
-
-
-def payload_nbytes(spec: WireSpec) -> int:
-    """Exact wire bytes of one encoded model copy (u8 codes + FP32 riders)."""
-    return spec.total * 1 + spec.n_other_elems * 4
+    a2 = alpha_tiles(other, spec) if spec.q_slots else None
+    return assemble(payload["codes"], other, a2, spec, fmt)

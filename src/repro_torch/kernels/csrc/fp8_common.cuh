@@ -71,6 +71,58 @@ __device__ __forceinline__ float round_rand(float y, uint32_t bits) {
   return fl + (u < (y - fl) ? 1.0f : 0.0f);
 }
 
+// One element's wire code (fp8_quant.py::_pack_code): quantize x onto the
+// grid of clip value a and assemble [sign|exp|mant], MSB first. Stochastic
+// when `stochastic`, from the counter RNG over the global element index
+// idx = row * 1024 + col. Bin-edge mantissa overflow renormalises into the
+// next exponent, or saturates the mantissa when the exponent is already at
+// its largest code (E2M1: 3; E3M0: 7, where 1 << mant == 1 makes every
+// nonzero v normal). The FP8 encode (quant_pack.cu), the FP4 encode
+// (quant_pack_sub.cu) and their amax variants (quant_pack_amax.cu) all call
+// this one function, so their codes cannot drift apart.
+__device__ __forceinline__ int pack_code(float x, float a, const Fmt& f,
+                                         bool stochastic, uint32_t idx,
+                                         uint32_t k0, uint32_t k1) {
+  const int top = 1 << (f.mant + 1);
+  const float p_max = (float)((1 << f.exp) - 1);
+  const float b = bias(a, f);
+  const float xc = clip(x, a);
+  float p = fminf(exponent(xc, b), p_max);
+  const float s = scale(p, b, f);
+  const float y = xc / s;
+  const float v_signed =
+      stochastic ? round_rand(y, counter_bits(idx, k0, k1)) : rintf(y);
+  const int sign = v_signed < 0.0f ? 1 : 0;
+  int v = (int)fabsf(v_signed);
+  if (v >= top) {
+    if (p >= p_max) {
+      v = top - 1;
+    } else {
+      v = v / 2;
+      p += 1.0f;
+    }
+  }
+  const bool normal = v >= (1 << f.mant);
+  const int field = normal ? (int)p : 0;
+  const int m_field = normal ? v - (1 << f.mant) : v;
+  return (sign << (f.exp + f.mant)) | (field << f.mant) | m_field;
+}
+
+// One code back to its f32 grid value (fp8_quant.py::_decode_codes), shared
+// by the FP8 and the FP4 decode (unpack.cu).
+__device__ __forceinline__ float decode_code(int code, float a, const Fmt& f) {
+  const float b = bias(a, f);
+  const int sign = (code >> (f.exp + f.mant)) & 0x1;
+  const int field = (code >> f.mant) & ((1 << f.exp) - 1);
+  const int m_field = code & ((1 << f.mant) - 1);
+  const bool normal = field >= 1;
+  const int v = normal ? m_field + (1 << f.mant) : m_field;
+  const int p_eff = normal ? field : 1;
+  const float s = exp2f(((float)p_eff - b) - (float)f.mant);
+  const float mag = (float)v * s;
+  return sign == 1 ? -mag : mag;
+}
+
 inline int grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;

@@ -1,5 +1,6 @@
 // Deterministic two-pass sum of a per-element term to one scalar, shared by
-// the STE backward kernels (quant_det_bwd.cu, quant_rand.cu).
+// the STE backward kernels (quant_det_bwd.cu, quant_rand.cu), and the block
+// max of the amax encodes (quant_pack_amax.cu).
 //
 // The TPU kernels accumulated the scalar clip cotangent in a (1, 1) block
 // across their sequential grid. Blocks here run in no order, so pass 1
@@ -23,6 +24,18 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
   __syncthreads();
   for (int w = kThreads / 2; w > 0; w >>= 1) {
     if ((int)threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
+    __syncthreads();
+  }
+  return sh[0];
+}
+
+// The same fixed tree with fmaxf: exact in any order (the per-row amax of
+// quant_pack_amax.cu).
+__device__ __forceinline__ float block_max(float v, float* sh) {
+  sh[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if ((int)threadIdx.x < w) sh[threadIdx.x] = fmaxf(sh[threadIdx.x], sh[threadIdx.x + w]);
     __syncthreads();
   }
   return sh[0];

@@ -1,10 +1,10 @@
 """The seam between model / federated code and the FP8 kernels.
 
-The port of ``repro.kernels.dispatch`` for this slice. Callers
-(``core.qat.wq``/``aq``, ``core.wire``) never launch a kernel directly. The
-path is chosen by the tensor's device alone, with no environment switch: a
-CUDA tensor launches the hand-written kernel (or raises), a CPU tensor runs
-the kernel's plain twin in ``kernels.ref``.
+The port of ``repro.kernels.dispatch`` for the ported kernels. Callers
+(``core.qat.wq``/``aq``, ``core.wire``, ``core.codec``) never launch a kernel
+directly. The path is chosen by the tensor's device alone, with no
+environment switch: a CUDA tensor launches the hand-written kernel (or
+raises), a CPU tensor runs the kernel's plain twin in ``kernels.ref``.
 
 ``quantize_det`` and ``quantize_rand`` are ``torch.autograd.Function`` classes:
 the forward is the ``quant_det`` / ``quant_rand`` kernel, the backward the
@@ -24,7 +24,7 @@ import torch
 
 from . import fp8_quant
 from ..core import fp8
-from ..core.fp8 import E4M3, FP8Format
+from ..core.fp8 import E4M3, FP4_E2M1, FP8Format
 
 
 class _QuantDetSTE(torch.autograd.Function):
@@ -151,3 +151,32 @@ def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
                  fmt: FP8Format = E4M3) -> torch.Tensor:
     """Decode ``(R, LANE)`` uint8 code tiles back to f32 grid values."""
     return fp8_quant.unpack_tiles(c2, a2, fmt)
+
+
+def quant_pack_sub_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                         key2: torch.Tensor | None = None,
+                         fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """Quantize + pack at ``8 // fmt.bits`` codes per byte (FP4), one launch;
+    the same per-element counter bits as :func:`quant_pack_tiles`."""
+    return fp8_quant.quant_pack_sub_tiles(x2, a2, key2, fmt)
+
+
+def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor,
+                     fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """Decode sub-byte packed code tiles back to ``(R, LANE)`` f32 grid values."""
+    return fp8_quant.unpack_sub_tiles(c2, a2, fmt)
+
+
+def quant_pack_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                          key2: torch.Tensor | None = None,
+                          fmt: FP8Format = E4M3):
+    """:func:`quant_pack_tiles` + the per-row raw amax ``(R, 1)`` from the
+    same launch (delayed scaling's history row)."""
+    return fp8_quant.quant_pack_amax_tiles(x2, a2, key2, fmt)
+
+
+def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                              key2: torch.Tensor | None = None,
+                              fmt: FP8Format = FP4_E2M1):
+    """:func:`quant_pack_sub_tiles` + the per-row raw amax ``(R, 1)``."""
+    return fp8_quant.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)

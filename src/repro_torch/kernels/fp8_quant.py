@@ -1,16 +1,20 @@
 """Hand-written Hopper kernels for the FP8 hot path, their build and wrappers.
 
-The CUDA C++ sources under ``csrc/`` port seven Pallas kernels of
+The CUDA C++ sources under ``csrc/`` port eleven Pallas kernels of
 ``repro.kernels.fp8_quant``, each wrapper here named after the Pallas
 kernel it replaces:
 
-* ``quant_det``        — ``csrc/quant_det.cu``
-* ``quant_det_bwd``    — ``csrc/quant_det_bwd.cu``
-* ``quant_pack_tiles`` — ``csrc/quant_pack.cu``
-* ``unpack_tiles``     — ``csrc/unpack.cu``
-* ``fake_quant_tiles`` — ``csrc/fake_quant.cu``
-* ``quant_rand``       — ``csrc/quant_rand.cu``
-* ``quant_rand_bwd``   — ``csrc/quant_rand.cu``
+* ``quant_det``                 — ``csrc/quant_det.cu``
+* ``quant_det_bwd``             — ``csrc/quant_det_bwd.cu``
+* ``quant_pack_tiles``          — ``csrc/quant_pack.cu``
+* ``unpack_tiles``              — ``csrc/unpack.cu``
+* ``fake_quant_tiles``          — ``csrc/fake_quant.cu``
+* ``quant_rand``                — ``csrc/quant_rand.cu``
+* ``quant_rand_bwd``            — ``csrc/quant_rand.cu``
+* ``quant_pack_sub_tiles``      — ``csrc/quant_pack_sub.cu``
+* ``unpack_sub_tiles``          — ``csrc/unpack.cu``
+* ``quant_pack_amax_tiles``     — ``csrc/quant_pack_amax.cu``
+* ``quant_pack_sub_amax_tiles`` — ``csrc/quant_pack_amax.cu``
 
 Build: at first use, ``nvcc`` compiles every source for ``sm_90a`` at once
 (one process per source, started together), links one shared library with a
@@ -37,11 +41,11 @@ from pathlib import Path
 import torch
 
 from . import ref
-from ..core.fp8 import E4M3, FP8Format
+from ..core.fp8 import E4M3, FP4_E2M1, FP8Format
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("quant_det.cu", "quant_det_bwd.cu", "quant_pack.cu", "unpack.cu",
-           "fake_quant.cu", "quant_rand.cu")
+           "fake_quant.cu", "quant_rand.cu", "quant_pack_sub.cu", "quant_pack_amax.cu")
 HEADERS = ("fp8_common.cuh", "reduce.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,7 +55,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 
 LANE = ref.LANE
 KERNELS = ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles",
-           "fake_quant_tiles", "quant_rand", "quant_rand_bwd")
+           "fake_quant_tiles", "quant_rand", "quant_rand_bwd", "quant_pack_sub_tiles",
+           "unpack_sub_tiles", "quant_pack_amax_tiles", "quant_pack_sub_amax_tiles")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib: ctypes.CDLL | None = None
@@ -138,10 +143,16 @@ def load() -> ctypes.CDLL:
         lib.repro_fake_quant_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
         lib.repro_quant_rand.argtypes = [p, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_rand_bwd.argtypes = [p, p, p, p, p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_pack_sub_tiles.argtypes = [p, p, i32, p, p, i64, i32, *fmt_args, p]
+        lib.repro_unpack_sub_tiles.argtypes = [p, p, i32, p, i64, i32, *fmt_args, p]
+        lib.repro_quant_pack_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, i32,
+                                                    *fmt_args, p]
         for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_blocks,
                    lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
                    lib.repro_unpack_tiles, lib.repro_fake_quant_tiles,
-                   lib.repro_quant_rand, lib.repro_quant_rand_bwd):
+                   lib.repro_quant_rand, lib.repro_quant_rand_bwd,
+                   lib.repro_quant_pack_sub_tiles, lib.repro_unpack_sub_tiles,
+                   lib.repro_quant_pack_amax_tiles):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -335,3 +346,90 @@ def quant_rand_bwd(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
         *_fmt_args(fmt), _stream())
     _launched(rc, "quant_rand_bwd")
     return gx, ga
+
+
+def _sub_codes(fmt: FP8Format) -> int:
+    """Codes per byte of a sub-byte ``fmt`` (2 for FP4); raises otherwise."""
+    k = ref.codes_per_byte(fmt)
+    if k == 1:
+        raise ValueError(f"{fmt.bits}-bit codes take one byte each: the sub-byte "
+                         "kernels are for formats of fewer bits (FP4)")
+    return k
+
+
+def quant_pack_sub_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                         key2: torch.Tensor | None = None,
+                         fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """Quantize + pack ``(R, 1024)`` f32 tiles at ``8 // fmt.bits`` codes per
+    byte -> ``(R, 1024 // k)`` u8 (FP4: code 2j in the low nibble of byte j);
+    ``key2`` a ``(2,)`` u32 key for stochastic rounding, None for det."""
+    k = _sub_codes(fmt)
+    if _on_cpu(x2, a2, key2):
+        return ref.quant_pack_sub_tiles(x2, a2, key2, fmt)
+    _check(x2, "x2", torch.float32)
+    a_cols = _check_alpha_tiles(x2, a2)
+    if key2 is not None:
+        _check(key2, "key2", torch.uint32, (2,))
+    out = torch.empty((x2.shape[0], LANE // k), dtype=torch.uint8, device=x2.device)
+    rc = load().repro_quant_pack_sub_tiles(
+        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), out.data_ptr(),
+        out.numel(), k, *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_pack_sub_tiles")
+    return out
+
+
+def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor,
+                     fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """Decode ``(R, 1024 // k)`` packed u8 codes to ``(R, 1024)`` f32."""
+    k = _sub_codes(fmt)
+    if _on_cpu(c2, a2):
+        return ref.unpack_sub_tiles(c2, a2, fmt)
+    _check(c2, "c2", torch.uint8)
+    if c2.dim() != 2 or c2.shape[1] != LANE // k:
+        raise ValueError(f"packed codes must be (R, {LANE // k}), got {tuple(c2.shape)}")
+    out = torch.empty((c2.shape[0], LANE), dtype=torch.float32, device=c2.device)
+    a_cols = _check_alpha_tiles(out, a2)
+    rc = load().repro_unpack_sub_tiles(c2.data_ptr(), a2.data_ptr(), a_cols,
+                                       out.data_ptr(), c2.numel(), k,
+                                       *_fmt_args(fmt), _stream())
+    _launched(rc, "unpack_sub_tiles")
+    return out
+
+
+def _pack_amax(name: str, k: int, x2, a2, key2, fmt):
+    _check(x2, "x2", torch.float32)
+    a_cols = _check_alpha_tiles(x2, a2)
+    if key2 is not None:
+        _check(key2, "key2", torch.uint32, (2,))
+    rows = x2.shape[0]
+    codes = torch.empty((rows, LANE // k), dtype=torch.uint8, device=x2.device)
+    rowmax = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    rc = load().repro_quant_pack_amax_tiles(
+        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), codes.data_ptr(),
+        rowmax.data_ptr(), rows, k, *_fmt_args(fmt), _stream())
+    _launched(rc, name)
+    return codes, rowmax
+
+
+def quant_pack_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                          key2: torch.Tensor | None = None,
+                          fmt: FP8Format = E4M3):
+    """:func:`quant_pack_tiles` and, from the same launch, the per-row max|x|
+    of the raw tiles: ``(codes (R, 1024) u8, rowmax (R, 1) f32)``."""
+    if ref.codes_per_byte(fmt) != 1:
+        raise ValueError(f"{fmt.bits}-bit codes pack several per byte: "
+                         "use quant_pack_sub_amax_tiles")
+    if _on_cpu(x2, a2, key2):
+        return ref.quant_pack_amax_tiles(x2, a2, key2, fmt)
+    return _pack_amax("quant_pack_amax_tiles", 1, x2, a2, key2, fmt)
+
+
+def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                              key2: torch.Tensor | None = None,
+                              fmt: FP8Format = FP4_E2M1):
+    """:func:`quant_pack_sub_tiles` and, from the same launch, the per-row
+    max|x| of the raw tiles: ``(codes (R, 1024 // k) u8, rowmax (R, 1) f32)``."""
+    k = _sub_codes(fmt)
+    if _on_cpu(x2, a2, key2):
+        return ref.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)
+    return _pack_amax("quant_pack_sub_amax_tiles", k, x2, a2, key2, fmt)

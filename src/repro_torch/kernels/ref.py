@@ -165,15 +165,10 @@ def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
     return fake_quant_bits(x2, a2, bits, fmt)
 
 
-def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
-                     key2: torch.Tensor | None = None,
-                     fmt: FP8Format = E4M3) -> torch.Tensor:
-    """Twin of ``_quant_pack_det_kernel`` / ``_quant_pack_rand_ctr_kernel``
-    with ``_pack_code``: ``(R, LANE)`` f32 -> ``(R, LANE)`` u8 codes.
-
-    ``a2`` is ``(R, 1)`` or ``(R, LANE)`` (already floored by the caller);
-    ``key2`` a ``(2,)`` u32 tensor for stochastic rounding, None for det.
-    """
+def _pack_codes(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,
+                fmt: FP8Format) -> torch.Tensor:
+    """Twin of ``_pack_code`` over the tile layout: int32 ``[sign|exp|mant]``
+    codes, stochastic from the counter RNG when ``key2`` is given."""
     a = a2.to(torch.float32)
     b = _bias(a, fmt)
     xc = _clip(x2, a)
@@ -194,14 +189,23 @@ def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
     is_normal = v >= 2 ** fmt.mant
     f = torch.where(is_normal, p.to(torch.int32), 0)
     m_field = torch.where(is_normal, v - 2 ** fmt.mant, v)
-    code = (sign << (fmt.exp + fmt.mant)) | (f << fmt.mant) | m_field
-    return code.to(torch.uint8)
+    return (sign << (fmt.exp + fmt.mant)) | (f << fmt.mant) | m_field
 
 
-def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
-                 fmt: FP8Format = E4M3) -> torch.Tensor:
-    """Twin of ``_unpack_kernel`` / ``_decode_codes``: u8 codes -> f32 grid values."""
-    code = c2.to(torch.int32)
+def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                     key2: torch.Tensor | None = None,
+                     fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_quant_pack_det_kernel`` / ``_quant_pack_rand_ctr_kernel``
+    with ``_pack_code``: ``(R, LANE)`` f32 -> ``(R, LANE)`` u8 codes.
+
+    ``a2`` is ``(R, 1)`` or ``(R, LANE)`` (already floored by the caller);
+    ``key2`` a ``(2,)`` u32 tensor for stochastic rounding, None for det.
+    """
+    return _pack_codes(x2, a2, key2, fmt).to(torch.uint8)
+
+
+def _decode_codes(code: torch.Tensor, a2: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
+    """Twin of ``_decode_codes``: int ``[sign|exp|mant]`` codes -> f32 grid values."""
     a = a2.to(torch.float32)
     b = _bias(a, fmt)
     sign = (code >> (fmt.exp + fmt.mant)) & 0x1
@@ -213,3 +217,78 @@ def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
     s = torch.exp2(p_eff.to(torch.float32) - b - fmt.mant)
     mag = v.to(torch.float32) * s
     return torch.where(sign == 1, -mag, mag)
+
+
+def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
+                 fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_unpack_kernel``: ``(R, LANE)`` u8 codes -> f32 grid values."""
+    return _decode_codes(c2.to(torch.int32), a2, fmt)
+
+
+# ---------------------------------------------------------------------------
+# sub-byte wire (B8) and the fused amax variants (B9)
+# ---------------------------------------------------------------------------
+
+
+def codes_per_byte(fmt: FP8Format) -> int:
+    """How many ``fmt`` codes share one payload byte (1 for FP8, 2 for FP4)."""
+    if fmt.bits > 8 or 8 % fmt.bits:
+        raise ValueError(f"cannot byte-pack a {fmt.bits}-bit format")
+    return 8 // fmt.bits
+
+
+def fold_codes(codes: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
+    """``(R, L)`` b-bit codes -> ``(R, L // (8 // b))`` u8, little-endian:
+    code ``k*i + j`` in bits ``j*b .. (j+1)*b`` of byte ``i``."""
+    k = codes_per_byte(fmt)
+    if k == 1:
+        return codes.to(torch.uint8)
+    rows, lanes = codes.shape
+    c = codes.to(torch.int32).reshape(rows, lanes // k, k)
+    out = c[..., 0]
+    for j in range(1, k):
+        out = out | (c[..., j] << (fmt.bits * j))
+    return out.to(torch.uint8)
+
+
+def unfold_codes(packed: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
+    """Inverse of :func:`fold_codes`: packed u8 -> ``(R, L)`` int32 codes."""
+    k = codes_per_byte(fmt)
+    p = packed.to(torch.int32)
+    if k == 1:
+        return p
+    mask = (1 << fmt.bits) - 1
+    code = torch.stack([(p >> (fmt.bits * j)) & mask for j in range(k)], dim=-1)
+    return code.reshape(p.shape[0], p.shape[1] * k)
+
+
+def quant_pack_sub_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                         key2: torch.Tensor | None, fmt: FP8Format) -> torch.Tensor:
+    """Twin of ``_quant_pack_sub_det_kernel`` / ``_rand_ctr_kernel``:
+    ``(R, LANE)`` f32 -> ``(R, LANE // codes_per_byte)`` u8. Tile zero fill
+    packs to code 0 under both roundings."""
+    return fold_codes(_pack_codes(x2, a2, key2, fmt), fmt)
+
+
+def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
+    """Twin of ``_unpack_sub_kernel``: packed u8 -> ``(R, LANE)`` f32."""
+    return _decode_codes(unfold_codes(c2, fmt), a2, fmt)
+
+
+def _rowmax(x2: torch.Tensor) -> torch.Tensor:
+    """Per-row max|x| of the raw (unclipped) tile, ``(R, 1)``."""
+    return torch.amax(torch.abs(x2), dim=1, keepdim=True)
+
+
+def quant_pack_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                          key2: torch.Tensor | None = None, fmt: FP8Format = E4M3):
+    """Twin of ``quant_pack_amax_tiles``: :func:`quant_pack_tiles` and the
+    per-row raw amax."""
+    return quant_pack_tiles(x2, a2, key2, fmt), _rowmax(x2)
+
+
+def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                              key2: torch.Tensor | None, fmt: FP8Format):
+    """Twin of ``quant_pack_sub_amax_tiles``: :func:`quant_pack_sub_tiles`
+    and the per-row raw amax."""
+    return quant_pack_sub_tiles(x2, a2, key2, fmt), _rowmax(x2)

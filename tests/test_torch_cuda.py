@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.fp8 import E4M3, E5M2, FP4_E2M1, FP4_E3M0
 from repro_torch.kernels import dispatch, fp8_quant, ref
 
 pytestmark = pytest.mark.cuda
@@ -157,3 +158,115 @@ def test_wrappers_validate_inputs(dev):
         fp8_quant.quant_pack_tiles(x, torch.ones((4, 2), device=dev))
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         fp8_quant.quant_det(x, torch.tensor(1.0))
+
+
+FP4 = {"e2m1": FP4_E2M1, "e3m0": FP4_E3M0}
+
+
+def _fp4_case(shape, seed, alpha_layout, dev):
+    x = _randn(shape, seed, 0.2, dev)
+    x[-1, 517:] = 0.0                      # an odd-length leaf's tail, zero fill after
+    a2 = x.abs().amax(dim=1, keepdim=True) * 0.9
+    if alpha_layout == "full":
+        a2 = a2.expand(shape).contiguous()
+    return x, a2
+
+
+@pytest.mark.parametrize("shape", [(9, 1024), (135, 1024), (8191, 1024)])
+@pytest.mark.parametrize("fmt", list(FP4))
+@pytest.mark.parametrize("alpha_layout", ["column", "full"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_fp4_pack_unpack_bitwise_against_twins(dev, shape, fmt, alpha_layout, stochastic):
+    f = FP4[fmt]
+    x, a2 = _fp4_case(shape, 14, alpha_layout, dev)
+    k = _key(dev) if stochastic else None
+    codes = fp8_quant.quant_pack_sub_tiles(x, a2, k, f)
+    assert codes.dtype == torch.uint8 and tuple(codes.shape) == (shape[0], 512)
+    assert torch.equal(codes, ref.quant_pack_sub_tiles(x, a2, k, f))
+    assert not codes[-1, 517 // 2 + 1:].any() and int(codes[-1, 517 // 2]) >> 4 == 0
+    vals = fp8_quant.unpack_sub_tiles(codes, a2, f)
+    assert torch.equal(vals, ref.unpack_sub_tiles(codes, a2, f))
+    # packing never changes a rounding decision: B5 at the FP4 format, 1 ULP
+    q = fp8_quant.fake_quant_tiles(x, a2, k, f)
+    aw = vals.abs()
+    assert bool((torch.abs(q - vals) <= torch.nextafter(aw, aw + 1) - aw).all())
+
+
+@pytest.mark.parametrize("shape", [(9, 1024), (135, 1024), (8191, 1024)])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "e2m1", "e3m0"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_amax_kernels_bitwise_against_twins_and_plain_encodes(dev, shape, fmt, stochastic):
+    f = {"e4m3": E4M3, "e5m2": E5M2, **FP4}[fmt]
+    x, a2 = _fp4_case(shape, 15, "column", dev)
+    k = _key(dev) if stochastic else None
+    if f.bits == 8:
+        codes, rowmax = fp8_quant.quant_pack_amax_tiles(x, a2, k, f)
+        plain = fp8_quant.quant_pack_tiles(x, a2, k, f)
+        twin = ref.quant_pack_amax_tiles(x, a2, k, f)
+    else:
+        codes, rowmax = fp8_quant.quant_pack_sub_amax_tiles(x, a2, k, f)
+        plain = fp8_quant.quant_pack_sub_tiles(x, a2, k, f)
+        twin = ref.quant_pack_sub_amax_tiles(x, a2, k, f)
+    assert torch.equal(codes, plain) and torch.equal(codes, twin[0])
+    assert torch.equal(rowmax, torch.amax(x.abs(), 1, keepdim=True))
+    assert torch.equal(rowmax, twin[1])
+
+
+def test_new_wrappers_count_and_validate(dev):
+    x = _randn((4, 1024), 16, 0.2, dev)
+    col = x.abs().amax(dim=1, keepdim=True)
+    before = dict(fp8_quant.LAUNCHES)
+    c = dispatch.quant_pack_sub_tiles(x, col, _key(dev))
+    dispatch.unpack_sub_tiles(c, col)
+    dispatch.quant_pack_amax_tiles(x, col)
+    dispatch.quant_pack_sub_amax_tiles(x, col, _key(dev), FP4_E3M0)
+    for name in ("quant_pack_sub_tiles", "unpack_sub_tiles", "quant_pack_amax_tiles",
+                 "quant_pack_sub_amax_tiles"):
+        assert fp8_quant.LAUNCHES[name] == before[name] + 1, name
+    with pytest.raises(TypeError, match="float32"):
+        fp8_quant.quant_pack_sub_tiles(x.double(), col)
+    with pytest.raises(ValueError, match=r"\(R, 512\)"):
+        fp8_quant.unpack_sub_tiles(torch.zeros((4, 1024), dtype=torch.uint8, device=dev), col)
+    with pytest.raises(TypeError, match="uint8"):
+        fp8_quant.unpack_sub_tiles(c.int(), col)
+    with pytest.raises(ValueError, match=r"\(R, 1\)"):
+        fp8_quant.quant_pack_amax_tiles(x, torch.ones((4, 2), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        fp8_quant.quant_pack_sub_amax_tiles(x.t().contiguous().t(), col)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        fp8_quant.quant_pack_sub_tiles(x, col.cpu())
+    with pytest.raises(ValueError, match="one byte each"):
+        fp8_quant.quant_pack_sub_tiles(x, col, None, E4M3)
+
+
+def test_format_round_on_the_card_runs_the_new_kernels(dev):
+    """A CUDA tensor never reaches a twin: an FP4 + delayed round launches
+    the sub-byte kernels, and an E4M3 delayed round the FP8 amax kernel."""
+    from repro_torch import optim
+    from repro_torch.core.engine import FedConfig
+    from repro_torch.core.fedsim import FedSim
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.data import partition_iid, synthetic_classification
+    from repro_torch.models import small
+
+    x, y = synthetic_classification(0, 200, d=32, n_classes=10)
+    cx, cy, nk = partition_iid(x, y, k=4, seed=0)
+    for kw, kernels in (
+            (dict(down_codec="fp4", up_codec="fp4", down_scaling="delayed:4",
+                  up_scaling="delayed:4"), ("quant_pack_sub_amax_tiles", "unpack_sub_tiles")),
+            (dict(down_codec="fp4", up_codec="delta:fp4"),
+             ("quant_pack_sub_tiles", "unpack_sub_tiles")),
+            (dict(down_scaling="delayed:4", up_scaling="delayed:4"),
+             ("quant_pack_amax_tiles", "unpack_tiles"))):
+        p = small.init_mlp(0, device=dev)
+        cfg = FedConfig(n_clients=4, participation=0.5, local_steps=2, batch_size=8,
+                        qat=QATConfig(), **kw)
+        sim = FedSim(p, small.make_loss(small.apply_mlp), small.apply_mlp, optim.sgd(0.05),
+                     cfg, cx, cy, nk, device=dev)
+        fp8_quant.reset_launches()
+        sim.run(1, seed=0)
+        torch.cuda.synchronize()
+        for name in kernels:
+            assert fp8_quant.LAUNCHES[name] > 0, (kw, name)
+        if kw.get("down_codec") == "fp4":   # no FP8 encode on an FP4 link
+            assert fp8_quant.LAUNCHES["quant_pack_tiles"] == 0
