@@ -7,7 +7,7 @@ Phases, each fatal on failure (the script then exits non-zero):
 
 1. set-up: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``); turns TF32 off for matmuls and cuDNN
-   convolutions; builds the eleven CUDA kernels from ``src/repro_torch/
+   convolutions; builds the thirteen CUDA kernels from ``src/repro_torch/
    kernels/csrc`` (``nvcc``, one process per source, at first use) and
    prints the build time.
 2. each kernel against its plain PyTorch twin on the card, at the shapes
@@ -32,9 +32,14 @@ Phases, each fatal on failure (the script then exits non-zero):
    transit within 1 f32 ULP of ``fake_quant_tiles`` at the FP4 format.
    Bitwise (the PR 11 kernels with at most 1e-5 of elements allowed to
    differ, adjacent-grid ties), and each scalar clip cotangent at relative
-   1e-5 with a cotangent signed like x. Prints each kernel's
-   median time (CUDA events) beside its plain twin's and its bound (bytes
-   over 3.35 TB/s, or operations over the card's f32 rate, the larger).
+   1e-5 with a cotangent signed like x. Then the rANS pair (B12
+   ``rans_decode`` and the encode, ``rans_kernel_phase``) on the real code
+   streams of the format MLP and of LeNet (E4M3 and FP4, plain and delta,
+   each against its table): buffers, states, lengths and symbols bitwise
+   against the twins; at 8191 x 1024 symbols decode(encode(s)) == s. Prints
+   each kernel's median time (CUDA events) beside its plain twin's and its
+   bound (bytes over 3.35 TB/s, or operations over the card's f32 rate, the
+   larger).
 3. the card against the CPU twins: one small federated round with the same
    draws (``round_phase``; MLP uq, LeNet with weight QAT, LeNet with full
    QAT, MLP uq+, MLP rand-qat): exact bytes, params and loss within the
@@ -56,17 +61,21 @@ Phases, each fatal on failure (the script then exits non-zero):
    Then the rand-qat / rand-qat-only cells of ``repro_torch.bench.table2``
    on cifar100-mlp at its default scale: the stochastic-QAT path, driven
    with the counters zeroed, where both ``quant_rand`` kernels must launch.
-6. the format ablation (run before phase 5): the ``format`` and
-   ``scaling`` sections of ``repro_torch.bench.format_ablation`` at the
-   reference's own scale (18 cells, 25 rounds, eval every 5), then four
+6. the format ablation (run before phase 5): the ``format``, ``scaling``
+   and ``pareto`` sections of ``repro_torch.bench.format_ablation`` at the
+   reference's own scale (28 cells, 25 rounds, eval every 5), then four
    full-width cifar10-lenet cells at the Table 1 budget, 3 rounds each (FP4
    on both legs; FP4 down with a delta:FP4 uplink; E4M3 with delayed:4 on
-   both legs; FP4 with delayed:4 on both legs). Each cell is driven with
-   the counters zeroed just before and read just after: its bytes per round
-   must be the reference's integer, the kernels of its codecs must launch,
-   and the amax encodes must not launch where no leg is delayed. One round
-   each of the FP4, the E4M3 delayed and the FP4 delayed LeNet cell is
-   profiled, for the new kernels' device time per launch.
+   both legs; FP4 with delayed:4 on both legs), and the cifar10-lenet
+   ``fp4|ef+rans`` cell (rANS FP4 down, ``ef:rans:fp4_e2m1_det`` up), 3
+   rounds. Each cell is driven with the counters zeroed just before and read
+   just after: its bytes per round must be the reference's integer (a
+   pareto cell's bound; its measured bytes at most the bound with a rANS
+   leg, equal without), the kernels of its codecs must launch (each rANS
+   kernel once per payload), the amax encodes must not launch where no leg
+   is delayed, nor the rANS pair where no leg is entropy-coded. One round
+   each of the FP4, the E4M3 delayed, the FP4 delayed and the ``fp4|ef+rans``
+   LeNet cell is profiled, for the kernels' device time per launch.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it); the last line is
@@ -130,15 +139,33 @@ PROFILED_IN = {   # kernel: (the profiled LeNet cell that runs it, its CUDA name
 }
 FORMAT_KERNELS = ("quant_pack_sub_tiles", "unpack_sub_tiles", "quant_pack_amax_tiles",
                   "quant_pack_sub_amax_tiles")
-KERNEL_INFO = {   # name: (source under csrc/, line of the TPU kernel in fp8_quant.py)
-    "quant_det": ("quant_det.cu", 92), "quant_det_bwd": ("quant_det_bwd.cu", 198),
-    "quant_pack_tiles": ("quant_pack.cu", 614), "unpack_tiles": ("unpack.cu", 1036),
-    "fake_quant_tiles": ("fake_quant.cu", 455), "quant_rand": ("quant_rand.cu", 115),
-    "quant_rand_bwd": ("quant_rand.cu", 231),
-    "quant_pack_sub_tiles": ("quant_pack_sub.cu", 736), "unpack_sub_tiles": ("unpack.cu", 777),
-    "quant_pack_amax_tiles": ("quant_pack_amax.cu", 900),
-    "quant_pack_sub_amax_tiles": ("quant_pack_amax.cu", 944),
+KERNEL_INFO = {   # name: (source under csrc/, file:line of the TPU kernel in src/repro/kernels)
+    "quant_det": ("quant_det.cu", "fp8_quant.py:92"),
+    "quant_det_bwd": ("quant_det_bwd.cu", "fp8_quant.py:198"),
+    "quant_pack_tiles": ("quant_pack.cu", "fp8_quant.py:614"),
+    "unpack_tiles": ("unpack.cu", "fp8_quant.py:1036"),
+    "fake_quant_tiles": ("fake_quant.cu", "fp8_quant.py:455"),
+    "quant_rand": ("quant_rand.cu", "fp8_quant.py:115"),
+    "quant_rand_bwd": ("quant_rand.cu", "fp8_quant.py:231"),
+    "quant_pack_sub_tiles": ("quant_pack_sub.cu", "fp8_quant.py:736"),
+    "unpack_sub_tiles": ("unpack.cu", "fp8_quant.py:777"),
+    "quant_pack_amax_tiles": ("quant_pack_amax.cu", "fp8_quant.py:900"),
+    "quant_pack_sub_amax_tiles": ("quant_pack_amax.cu", "fp8_quant.py:944"),
+    "rans_decode": ("rans.cu", "rans.py:187"),
+    # no TPU kernel, so it replaces none; it mirrors the reference's lax.scan encode
+    "rans_encode": ("rans.cu", None),
 }
+MIRRORS = {"rans_encode": "src/repro/kernels/rans.py:81"}
+RANS_KERNELS = ("rans_encode", "rans_decode")
+# the reference's static bounds per round of the ablation's pareto cells (MLP
+# d_in 64, 10 classes, K=10, C=0.3), and of the cifar10-lenet fp4|ef+rans cell
+PARETO_BYTES = {
+    "e4m3|plain": 56448, "e4m3|delta": 56484, "e4m3|ef": 56448, "e4m3|rans": 110244,
+    "e4m3|ef+rans": 110208, "fp4|plain": 29952, "fp4|delta": 29988, "fp4|ef": 29952,
+    "fp4|rans": 57252, "fp4|ef+rans": 57216,
+}
+LENET_PARETO_CELL = ("fp4|ef+rans", dict(down_codec="rans:fp4_e2m1",
+                                         up_codec="ef:rans:fp4_e2m1_det"), 827760)
 
 
 def synchronize() -> None:
@@ -158,9 +185,9 @@ def smi_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 7, iters: int = 50) -> float:
+def time_ms(fn, reps: int = 7, iters: int = 50, warmup: int = 5) -> float:
     """Median over ``reps`` of the mean time of ``iters`` back-to-back calls."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     samples = []
@@ -477,6 +504,106 @@ def format_timing_cases(K, R, xt, col, key, codes4) -> dict:
     }
 
 
+def rans_kernel_phase(dev) -> dict:
+    """The rANS pair (B12 ``rans_decode`` and the encode) on real code
+    streams: the init weights of the format ablation's MLP and of LeNet,
+    coded by the E4M3 and FP4 E2M1 wires (plain, against the plain table)
+    and by their delta wires (the residual against a slightly moved copy,
+    against the delta table): the kernel's buffer, states and lengths and
+    the decoded symbols bitwise against the twins', and the decode equal to
+    the stream. At 8191 x 1024 symbols (524k rows a lane) the step-by-step
+    twin is too slow to run, so there the pair is held to decode(encode(s))
+    == s and timed only. Times (CUDA events) beside the twin's and the
+    bound: bytes moved (symbols, the table, the coded buffer, states and
+    lengths; the decode reads only the ``sum(lens)`` coded bytes it uses)
+    over 3.35 TB/s, or about 12 integer operations a symbol over the f32
+    rate, the larger. Neither bounds a lane's chain of ``steps`` dependent
+    iterations, which is what the times show."""
+    from repro_torch import tree
+    from repro_torch.bench import common
+    from repro_torch.core import codec, entropy, wire
+    from repro_torch.kernels import rans
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import small
+
+    key = torch.tensor([0x9E3779B9, 0x7F4A7C15], dtype=torch.int64).to(torch.uint32).to(dev)
+    models = {"format-mlp": small.init_mlp(0, d_in=64, n_classes=10, device=dev),
+              "cifar10-lenet": common.make_model(common.TASKS["cifar10-lenet"], 0, dev)[0]}
+    worst = dict.fromkeys(RANS_KERNELS, 0.0)
+    streams = {}
+    for mname, params in models.items():
+        spec = wire.make_wire_spec(params)
+        moved = tree.tree_map(lambda p: p * 0.98, params)
+        for grid in ("e4m3", "fp4_e2m1"):
+            for inner in (grid, "delta:" + grid):
+                rc = codec.get_codec("rans:" + inner)
+                ic = rc.inner
+                syms = ic.encode(params, spec, key, ref=moved)["codes"].contiguous()
+                check(syms.numel() == ic.code_nbytes(spec), f"{mname} {inner}: stream size")
+                streams[(mname, inner)] = (syms, rc.table(dev))
+    def diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
+        """(values that differ, their largest absolute difference)."""
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        return int((d != 0).sum()), float(d.max()) if d.numel() else 0.0
+
+    for (mname, inner), (syms, (freq, cum, s2s)) in streams.items():
+        n = syms.numel()
+        buf, state, lens = rans.rans_encode(syms, freq, cum)
+        per = [diff(a, b) for a, b in zip((buf, state, lens), R.rans_encode(syms, freq, cum))]
+        bad = sum(c for c, _ in per)
+        worst["rans_encode"] = max(worst["rans_encode"], *(e for _, e in per))
+        check(bad == 0, f"rans_encode {mname} {inner} n={n}: {bad} values differ")
+        out = rans.rans_decode(buf, state, lens, n, freq, cum, s2s)
+        bad, err = diff(out, R.rans_decode(buf, state, lens, n, freq, cum, s2s))
+        worst["rans_decode"] = max(worst["rans_decode"], err)
+        check(bad == 0, f"rans_decode {mname} {inner} n={n}: {bad} symbols differ")
+        check(torch.equal(out, syms), f"rans {mname} {inner}: decode(encode(s)) != s")
+        print(f"[kernels] rans pair {mname} {inner}: {n} symbols, {rans.n_steps(n)} rows a "
+              f"lane, coded {int(lens.sum())} bytes (bound {buf.numel()}): bitwise ok")
+    # the large stream, drawn from the E4M3 plain table (the matched case)
+    freq, cum, s2s = codec.get_codec("rans:e4m3").table(dev)
+    g = torch.Generator().manual_seed(0)
+    big = s2s.cpu()[torch.randint(0, rans.TAB, (LARGE[0] * LARGE[1],), generator=g)].to(
+        torch.uint8).to(dev)
+    buf, state, lens = rans.rans_encode(big, freq, cum)
+    check(torch.equal(rans.rans_decode(buf, state, lens, big.numel(), freq, cum, s2s), big),
+          "rans large stream: decode(encode(s)) != s")
+    print(f"[kernels] rans pair random {big.numel()} symbols ({rans.n_steps(big.numel())} "
+          f"rows a lane): decode(encode(s)) == s")
+    synchronize()
+
+    timings = {}
+    cases = (("main", streams[("format-mlp", "e4m3")][0], 3),
+             ("lenet", streams[("cifar10-lenet", "e4m3")][0], 1),
+             ("large", big, 0))
+    for label, syms, twin_reps in cases:
+        n, steps = syms.numel(), rans.n_steps(syms.numel())
+        buf, state, lens = rans.rans_encode(syms, freq, cum)
+        coded = int(lens.sum())
+        table_bytes = 2 * 256 * 4
+        runs = {
+            "rans_encode": (lambda: rans.rans_encode(syms, freq, cum),
+                            lambda: R.rans_encode(syms, freq, cum),
+                            n + table_bytes + buf.numel() + 8 * rans.LANES),
+            "rans_decode": (lambda: rans.rans_decode(buf, state, lens, n, freq, cum, s2s),
+                            lambda: R.rans_decode(buf, state, lens, n, freq, cum, s2s),
+                            coded + 8 * rans.LANES + table_bytes + 4 * rans.TAB + n),
+        }
+        for name, (kern, twin, n_bytes) in runs.items():
+            reps, iters = (7, 20) if label != "large" else (3, 2)
+            ms = time_ms(kern, reps=reps, iters=iters)
+            plain_ms = (time_ms(twin, reps=twin_reps, iters=1, warmup=1) if twin_reps
+                        else None)
+            b_ms, b_by = bound(n_bytes, 12 * steps * rans.LANES)
+            timings.setdefault(name, {})[label] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, shape=[n],
+                steps=steps, coded_bytes=coded)
+            print(f"[time] {name:17s} {label:5s} {n:>8d} symbols ({steps} rows) kernel "
+                  f"{ms:.5f} ms  twin {'-' if plain_ms is None else f'{plain_ms:.5f}'} ms  "
+                  f"bound {b_ms:.6f} ms ({b_by})")
+    return {"worst": worst, "timings": timings}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: small rounds, card against CPU twins
 # ---------------------------------------------------------------------------
@@ -698,7 +825,8 @@ def profile_round(sim, s_round: float, label: str) -> dict:
     ours = ("quant_det_kernel", "quant_det_bwd_kernel", "sum_partials_kernel",
             "quant_pack_kernel", "unpack_kernel", "fake_quant_kernel",
             "quant_rand_kernel", "quant_rand_bwd_kernel", "quant_pack_sub_kernel",
-            "unpack_sub_kernel", "quant_pack_amax_kernel")
+            "unpack_sub_kernel", "quant_pack_amax_kernel", "rans_encode_kernel",
+            "rans_decode_kernel")
     per_launch = {}
     for e in rows:
         name = e.key.removeprefix("void ").split("(")[0]  # a template: "void f<1>(...)"
@@ -716,11 +844,13 @@ def profile_round(sim, s_round: float, label: str) -> dict:
 
 def _cell_kernels(kw: dict) -> tuple[set, set]:
     """The wire kernels a cell with FedConfig overrides ``kw`` must launch,
-    and the amax encodes it must not: an FP4 leg runs the FP4 pair, an FP8
-    leg the FP8 pair; a delayed leg encodes with its format's amax kernel."""
+    and those it must not: an FP4 leg runs the FP4 pair, an FP8 leg the FP8
+    pair (under EF, delta or rANS too); a delayed leg encodes with its
+    format's amax kernel; a rANS leg runs the rANS pair, and no other cell
+    does."""
     must, never = set(), set()
     if kw.get("comm_mode") == "none":
-        return must, {"quant_pack_tiles", "unpack_tiles", *FORMAT_KERNELS}
+        return must, {"quant_pack_tiles", "unpack_tiles", *FORMAT_KERNELS, *RANS_KERNELS}
     for leg in ("down", "up"):
         codec = kw.get(f"{leg}_codec") or "e4m3"
         fp4 = "fp4" in codec
@@ -730,9 +860,13 @@ def _cell_kernels(kw: dict) -> tuple[set, set]:
             must.add("quant_pack_sub_amax_tiles" if fp4 else "quant_pack_amax_tiles")
         else:
             must.add("quant_pack_sub_tiles" if fp4 else "quant_pack_tiles")
+        if "rans" in codec:
+            must |= set(RANS_KERNELS)
     if not any(str(kw.get(f"{leg}_scaling") or "").startswith("delayed")
                for leg in ("down", "up")):
         never |= {"quant_pack_amax_tiles", "quant_pack_sub_amax_tiles"}
+    if not any("rans" in str(kw.get(f"{leg}_codec") or "") for leg in ("down", "up")):
+        never |= set(RANS_KERNELS)
     return must, never
 
 
@@ -740,6 +874,26 @@ def _wire_launches(launches: dict) -> dict:
     """The launches of a cell without the QAT pair's (every cell has those)."""
     return {k: v for k, v in launches.items()
             if v and k not in ("quant_det", "quant_det_bwd")}
+
+
+def _check_pareto_row(r: dict, kw: dict, launches: dict, rounds: int, cohort: int) -> None:
+    """A pareto cell: its bound the reference's integer, the two-lane
+    contract (measured <= bound with a rANS leg, == without), and each rANS
+    kernel launched once per payload (1 downlink + P uplinks a round)."""
+    name = r["comm_fmt"]
+    check(r["round_bytes"] == PARETO_BYTES[name],
+          f"{name}: bound {r['round_bytes']} != {PARETO_BYTES[name]}")
+    rans_cell = any("rans" in kw[f"{leg}_codec"] for leg in ("down", "up"))
+    if rans_cell:
+        check(0 < r["measured_round_bytes"] <= r["round_bytes"],
+              f"{name}: measured {r['measured_round_bytes']} > bound {r['round_bytes']}")
+        for k in RANS_KERNELS:
+            check(launches[k] == rounds * (1 + cohort),
+                  f"{name}: {k} launched {launches[k]} times, not {rounds * (1 + cohort)}")
+    else:
+        check(r["measured_round_bytes"] == r["round_bytes"],
+              f"{name}: measured {r['measured_round_bytes']} != bound {r['round_bytes']}")
+    _check_cell_launches(name, kw, launches)
 
 
 def _check_cell_launches(label: str, kw: dict, launches: dict) -> None:
@@ -751,32 +905,44 @@ def _check_cell_launches(label: str, kw: dict, launches: dict) -> None:
 
 
 def format_phase(dev) -> dict:
-    """The format ablation's 18 cells on the MLP, then the four cifar10-lenet
-    format cells; every cell with the launch counters zeroed just before and
-    read just after. Returns the launches summed over the cells and, per
-    profiled cell, the device time per launch of each of the port's kernels."""
+    """The format ablation's 28 cells on the MLP (its ``format``, ``scaling``
+    and ``pareto`` sections), then the four cifar10-lenet format cells and
+    the cifar10-lenet ``fp4|ef+rans`` cell; every cell with the launch
+    counters zeroed just before and read just after. Returns the launches
+    summed over the format cells and over the pareto cells and, per profiled
+    cell, the device time per launch of each of the port's kernels."""
     from repro_torch.bench import format_ablation, table1
     from repro_torch.kernels import fp8_quant as K
 
     total = dict.fromkeys(K.KERNELS, 0)
+    pareto_total = dict.fromkeys(K.KERNELS, 0)
     t0 = time.perf_counter()
     cells = format_ablation.cells()
     rows = format_ablation.iter_rows(device=dev)
     n_rounds = format_ablation.DEFAULT["rounds"]
-    for _, _, kw in cells:
+    cohort = round(format_ablation.DEFAULT["k"] * format_ablation.DEFAULT["c"])
+    for section, _, kw in cells:
         K.reset_launches()
         synchronize()
         r = next(rows)                   # runs this cell
         synchronize()
         launches = dict(K.LAUNCHES)
         for k, v in launches.items():
-            total[k] += v
-        name, want = r["comm_fmt"], FORMAT_BYTES[r["comm_fmt"]]
-        print(f"[format] {name:34s} {n_rounds} rounds: final_acc {r['final_acc']:.4f} "
-              f"bytes/round {r['round_bytes']} comm_gain {r['comm_gain_vs_fp32']} "
-              f"wall {r['wall_s']:.2f} s wire launches {_wire_launches(launches)}")
-        check(r["round_bytes"] == want, f"{name}: bytes/round {r['round_bytes']} != {want}")
+            (pareto_total if section == "pareto" else total)[k] += v
+        name = r["comm_fmt"]
+        print(f"[{section}] {name:34s} {n_rounds} rounds: final_acc {r['final_acc']:.4f} "
+              f"bytes/round {r['round_bytes']} measured "
+              f"{r.get('measured_round_bytes', r['round_bytes'])} comm_gain "
+              f"{r['comm_gain_vs_fp32']} wall {r['wall_s']:.2f} s wire launches "
+              f"{_wire_launches(launches)}")
         check(0.0 <= r["final_acc"] <= 1.0, f"{name}: accuracy {r['final_acc']}")
+        if section == "pareto":
+            print(f"[pareto] {name:34s} bits/param {r['bits_per_param']} gain to 0.95 "
+                  f"{r['gain_to_acc_0p95']} acc vs fp32 {r['acc_delta_vs_fp32']}")
+            _check_pareto_row(r, kw, launches, n_rounds, cohort)
+            continue
+        want = FORMAT_BYTES[name]
+        check(r["round_bytes"] == want, f"{name}: bytes/round {r['round_bytes']} != {want}")
         _check_cell_launches(name, kw, launches)
     check(next(rows, None) is None, "format ablation: more rows than cells")
     print(f"[format] ablation: {len(cells)} cells in {time.perf_counter() - t0:.1f} s")
@@ -817,7 +983,40 @@ def format_phase(dev) -> dict:
             device_us[label] = profile_round(sim, s_round, f"lenet {label}")
     for name in FORMAT_KERNELS:
         check(total[name] > 0, f"kernel {name} was not launched on the format path")
-    return {"launches": total, "device_us": device_us}
+
+    # the pareto stack at LeNet's full width: fp4|ef+rans, 3 rounds
+    label, kw, want = LENET_PARETO_CELL
+    sim, cfg, (xt, yt) = _make_sim(dev, "cifar10-lenet", "uq", sc, **kw)
+    check(sim.bytes_per_round == want, f"lenet {label}: bound {sim.bytes_per_round} != {want}")
+    K.reset_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    hist = sim.run(FORMAT_ROUNDS, seed=0, eval_data=(xt, yt), eval_every=FORMAT_ROUNDS)
+    synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    for k, v in launches.items():
+        pareto_total[k] += v
+    measured = hist.cumulative_bytes[-1] / FORMAT_ROUNDS
+    check(0 < measured <= want, f"lenet {label}: measured {measured} > bound {want}")
+    for k in RANS_KERNELS:
+        check(launches[k] == FORMAT_ROUNDS * (1 + cfg.clients_per_round),
+              f"lenet {label}: {k} launched {launches[k]} times")
+    _check_cell_launches(f"lenet {label}", kw, launches)
+    check(all(math.isfinite(v) for v in hist.loss), f"lenet {label}: loss {hist.loss}")
+    for v in sim.state.params.values():
+        for leaf in v.values():
+            check(bool(torch.isfinite(leaf).all()), f"lenet {label}: non-finite parameter")
+    check(bool(torch.isfinite(sim.state.clients.resid).all()), f"lenet {label}: residuals")
+    s_round = wall / FORMAT_ROUNDS
+    print(f"[pareto] cifar10-lenet {label} {FORMAT_ROUNDS} rounds: final_acc "
+          f"{hist.accuracy[-1]:.4f} bound/round {sim.bytes_per_round} measured/round "
+          f"{measured:.1f} wall {wall:.2f} s ({s_round:.3f} s/round, eval included) "
+          f"wire launches {_wire_launches(launches)}")
+    device_us["lenet " + label] = profile_round(sim, s_round, f"lenet {label}")
+    for name in RANS_KERNELS:
+        check(pareto_total[name] > 0, f"kernel {name} was not launched on the pareto path")
+    return {"launches": total, "pareto_launches": pareto_total, "device_us": device_us}
 
 
 # ---------------------------------------------------------------------------
@@ -899,37 +1098,51 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kern = kernel_phase(dev)
+    rans_kern = rans_kernel_phase(dev)
+    kern["worst"].update(rans_kern["worst"])
+    kern["timings"].update(rans_kern["timings"])
     round_phase(dev)
     main_path_phase(dev, "uq")
     uqp = main_path_phase(dev, "uq+")
     fmt = format_phase(dev)
     grid = grid_phase(dev)
 
-    def path(name: str) -> tuple[str, dict]:
+    def path(name: str) -> tuple[str, int]:
         if name in FORMAT_KERNELS:
-            return "format ablation (18 MLP cells, 4 cifar10-lenet cells)", fmt
+            return ("format ablation (18 MLP cells, 4 cifar10-lenet cells)",
+                    fmt["launches"][name])
+        if name in RANS_KERNELS:
+            return ("format ablation pareto (10 MLP cells, cifar10-lenet fp4|ef+rans)",
+                    fmt["pareto_launches"][name])
         if name.startswith("quant_rand"):
-            return "table2 rand-qat", grid
-        return "cifar10-lenet uq+", uqp
+            return "table2 rand-qat", grid["launches"][name]
+        return "cifar10-lenet uq+", uqp["launches"][name]
 
     rows = []
     for name in K.KERNELS:
         t = kern["timings"][name]["main"]
-        source, line = KERNEL_INFO[name]
-        label, run = path(name)
+        source, replaces = KERNEL_INFO[name]
+        label, launches = path(name)
+        extra = {}
+        if name in FORMAT_KERNELS:
+            extra = {"mlp": kern["timings"][name]["mlp"], "device_us": fmt["device_us"][
+                PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}
+        elif name in RANS_KERNELS:
+            extra = {"lenet": kern["timings"][name]["lenet"], "steps": t["steps"],
+                     "device_us": fmt["device_us"]["lenet " + LENET_PARETO_CELL[0]].get(
+                         name + "_kernel")}
+            if name in MIRRORS:
+                extra["mirrors"] = MIRRORS[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": f"src/repro/kernels/fp8_quant.py:{line}",
-            "launches": run["launches"][name],
+            "replaces": replaces and f"src/repro/kernels/{replaces}",
+            "launches": launches,
             "path": label,
             "max_abs_err": kern["worst"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
-            "large": kern["timings"][name]["large"],
-            **({"mlp": kern["timings"][name]["mlp"],
-                "device_us": fmt["device_us"][PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}
-               if name in FORMAT_KERNELS else {}),
+            "large": kern["timings"][name]["large"], **extra,
         })
     print(f"[setup] whole run {time.perf_counter() - t_start:.1f} s")
     print(f"[setup] {smi}")

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.ef import ClientState
 from .device import resolve_device
 from .optim.adamw import AdamWState
 
@@ -34,3 +35,11 @@ def from_jax_adamw_state(np_state, device="cuda") -> AdamWState:
     the port's, each moment tree converted as :func:`from_jax_params`."""
     return AdamWState(mu=from_jax_params(np_state.mu, device),
                       nu=from_jax_params(np_state.nu, device))
+
+
+def from_jax_client_state(np_state, device="cuda") -> ClientState:
+    """The reference's error-feedback ``ClientState(resid)`` (``resid`` a numpy
+    ``(n_clients, total)`` array) -> the port's, on ``device``; both lay a
+    row out in the wire's quantized-leaf order."""
+    return ClientState(resid=torch.from_numpy(
+        np.array(np_state.resid, dtype=np.float32, copy=True)).to(resolve_device(device)))

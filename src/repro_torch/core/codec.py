@@ -8,7 +8,12 @@ A ``WireCodec`` owns one leg's compression and its byte accounting:
   the FP32 riders;
 * ``decode(payload, spec, ref=None)`` — the tree a receiver rebuilds;
 * ``payload_nbytes(spec)`` / ``code_nbytes(spec)`` — exact bytes of one
-  model copy / of its codes alone; ``tag`` is the registry name.
+  model copy / of its codes alone; ``tag`` is the registry name;
+* ``payload_nbytes_traced(payload, spec)`` — the bytes of one concrete
+  payload. A ``dynamic`` codec (entropy coding) has a data-dependent size:
+  its ``payload_nbytes`` is then the static BOUND, which ``core.metrics``
+  reports, and the engine charges ``wire_bytes`` from this traced lane.
+  For every other codec the two lanes are the same number.
 
 ``key2`` is the leg's ``(2,)`` u32 stochastic-rounding key (the reference
 derives the same two words from a ``jax.random`` key). ``ref`` is the
@@ -25,6 +30,11 @@ round's reference model, held by both ends of the leg; only
   ``params - ref``, each leaf clipped at its fresh ``max|params - ref|``,
   which rides as one ``(n_q,)`` FP32 rider. Uplink only.
 
+Two wrappers come from their own modules: ``core.entropy.RansCodec``
+(``rans:<inner>``, static-table rANS over the inner codec's code stream) and
+``core.ef.ErrorFeedbackCodec`` (``ef:<inner>``, per-client residual memory,
+uplink only, driven by the engine through ``up_transit``).
+
 The grid codecs also take explicit scales (``encode_scaled`` /
 ``decode_scaled``) for the policies of ``core.scaling``: delayed scaling
 ships its effective scales as one ``(n_q,)`` rider and takes next round's
@@ -32,9 +42,9 @@ amax from the encode launch (``with_amax=True``); frozen scaling drops the
 alpha riders and the receiver splices them back.
 
 :func:`get_codec` resolves registry names (``e4m3``, ``e5m2_det``, ``fp4``
-= ``fp4_e2m1``, ``fp4_e3m0``, ``delta:<inner>``, ``fp32``/``none``, ...).
-The entropy-coded (``rans:``) and error-feedback (``ef:``) codecs, codec
-schedules and the codecs' one-launch ``fake_quant`` transit are not ported.
+= ``fp4_e2m1``, ``fp4_e3m0``, ``delta:<inner>``, ``rans:<inner>``,
+``ef:<inner>``, ``fp32``/``none``, ...). Codec schedules and the codecs'
+one-launch ``fake_quant`` transit are not ported.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ class WireCodec:
 
     tag = "?"
     quantized = True
+    dynamic = False
 
     def encode(self, params: dict, spec: wire.WireSpec,
                key2: torch.Tensor | None, ref: dict | None = None) -> dict:
@@ -77,6 +88,10 @@ class WireCodec:
 
     def code_nbytes(self, spec: wire.WireSpec) -> int:
         raise NotImplementedError
+
+    def payload_nbytes_traced(self, payload: dict, spec: wire.WireSpec):
+        """Bytes of this concrete payload; the static count unless ``dynamic``."""
+        return self.payload_nbytes(spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,8 +311,9 @@ register_codec("delta", DeltaCodec(Fp8Codec(E4M3, "rand")))
 
 def get_codec(c) -> WireCodec:
     """Resolve a codec spec: a :class:`WireCodec` passes through; a string
-    looks up the registry, with ``delta:<inner>`` composing recursively.
-    ``rans:``/``ef:`` name codecs that are not ported and raise."""
+    looks up the registry. Prefixes compose recursively: ``delta:<inner>``,
+    ``rans:<inner>`` (``core.entropy``) and ``ef:<inner>`` (``core.ef``);
+    bare ``rans``/``ef`` take the ``e4m3`` inner, as bare ``delta`` does."""
     if isinstance(c, WireCodec):
         return c
     if not isinstance(c, str):
@@ -305,15 +321,18 @@ def get_codec(c) -> WireCodec:
     name = c.lower()
     if name.startswith("delta:"):
         return DeltaCodec(get_codec(name[len("delta:"):]))
-    for prefix in ("rans", "ef"):
-        if name == prefix or name.startswith(prefix + ":"):
-            raise NotImplementedError(
-                f"codec {c!r}: the {prefix}: codecs (core/entropy.py, core/ef.py) are "
-                "not ported yet; they come with the next slice of the port")
+    if name == "rans" or name.startswith("rans:"):
+        from .entropy import RansCodec  # imported here: entropy builds on this module
+
+        return RansCodec(get_codec(name[len("rans:"):] or "e4m3"))
+    if name == "ef" or name.startswith("ef:"):
+        from .ef import ErrorFeedbackCodec
+
+        return ErrorFeedbackCodec(get_codec(name[len("ef:"):] or "e4m3"))
     if name in _REGISTRY:
         return _REGISTRY[name]
     raise KeyError(f"unknown codec {c!r}; registered: {sorted(_REGISTRY)} "
-                   "(or composed 'delta:<name>')")
+                   "(or composed 'delta:<name>' / 'rans:<name>' / 'ef:<name>')")
 
 
 def registry_tags() -> list[str]:

@@ -10,6 +10,12 @@ Algorithm 1 as four stage objects:
   with its own key, against the decoded broadcast as the reference model
   of a delta leg. A delayed-scaling leg encodes at the scales of its amax
   history (``ServerState.scales``) and appends the amax its encode emits.
+  An error-feedback uplink (``core.ef``) compensates each client's model
+  with its residual row of ``ServerState.clients`` and writes the new row
+  back. Each leg reports its payloads' sizes: ``wire_bytes`` is P downlink
+  copies plus the sum of the uplink payloads, the static ``round_bytes``
+  on a static link and a device scalar when a leg is dynamic
+  (entropy-coded), whose ``round_bytes`` is then the bound.
 * **ClientExecutor** — ``VmapExecutor``: every cohort client runs
   ``LocalUpdate`` (a Python loop over the cohort stands in for ``vmap``).
 * **Aggregator** — ``MeanAggregator``: the n_k-weighted mean (UQ), or
@@ -27,8 +33,7 @@ stochastic QAT, a source of each weight site's random bits.
 hand in the reference's draws instead.
 
 Not ported yet: the weighted/fixed samplers, the chunked and sharded
-executors, the stateful aggregators, faults, codec schedules, entropy
-coding and error feedback.
+executors, the stateful aggregators, faults and codec schedules.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import Any, Callable, NamedTuple, Protocol
 import torch
 
 from . import codec as codec_lib
+from . import ef as ef_lib
 from . import metrics, wire
 from . import scaling as scaling_lib
 from .codec import DeltaCodec, Fp8Codec, WireCodec
@@ -56,12 +62,14 @@ LossFn = Callable[..., torch.Tensor]  # (params, x, y, qat_cfg[, bits=]) -> scal
 
 class ServerState(NamedTuple):
     """What the server carries between rounds: the model, the aggregator
-    state and the scaling state (a ``(down, up)`` pair of amax histories,
-    ``()`` unless a leg scales away from ``current``)."""
+    state, the scaling state (a ``(down, up)`` pair of amax histories,
+    ``()`` unless a leg scales away from ``current``) and the per-client
+    state (an ``ef.ClientState``, ``()`` unless the uplink is EF)."""
 
     params: dict
     opt: Any = ()
     scales: Any = ()
+    clients: Any = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,11 +280,15 @@ class UniformSampler:
 
 
 def _codec_transit(codec: WireCodec, params: dict, spec: wire.WireSpec,
-                   key2: torch.Tensor, ref: dict | None = None) -> dict:
-    """One leg through ``codec``: what a receiver of the payload observes."""
+                   key2: torch.Tensor, ref: dict | None = None):
+    """One leg through ``codec``: ``(received_tree, nbytes)``, what a receiver
+    of the payload observes and the payload's size (a device scalar when the
+    codec is ``dynamic``, else the static Python int)."""
     if not (codec.quantized and spec.q_slots):
-        return params
-    return codec.decode(codec.encode(params, spec, key2, ref=ref), spec, ref=ref)
+        return params, codec_lib.leg_nbytes(codec, spec)
+    payload = codec.encode(params, spec, key2, ref=ref)
+    return (codec.decode(payload, spec, ref=ref),
+            codec.payload_nbytes_traced(payload, spec))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,8 +298,9 @@ class WireLink:
     None is ``'current'``).
 
     A non-current policy needs a grid codec (``Fp8Codec``/``PackedFpCodec``)
-    on its leg; ``'frozen'`` is downlink-only, and so is no ``DeltaCodec``:
-    a client joining the round holds no reference model.
+    on its leg; ``'frozen'`` is downlink-only. Neither ``DeltaCodec`` nor
+    ``ErrorFeedbackCodec`` runs on the downlink: a client joining the round
+    holds no reference model and no memory of earlier broadcasts.
     """
 
     down_codec: Any = codec_lib.Fp8Codec()
@@ -301,6 +314,12 @@ class WireLink:
             raise ValueError("DeltaCodec cannot run on the downlink: the receiver (a "
                              "client joining the round) holds no reference model. Use "
                              "it on the uplink, where the reference is the broadcast.")
+        if isinstance(down, ef_lib.ErrorFeedbackCodec):
+            raise ValueError("ErrorFeedbackCodec cannot run on the downlink: the receivers "
+                             "are freshly sampled clients holding no memory of earlier "
+                             "broadcasts, so there is no residual to feed back. Use it on "
+                             "the uplink, where the engine threads per-client residual "
+                             "state (ServerState.clients).")
         down_p = scaling_lib.get_policy(self.down_scaling)
         up_p = scaling_lib.get_policy(self.up_scaling)
         for leg, pol, c in (("down", down_p, down), ("up", up_p, up)):
@@ -322,6 +341,17 @@ class WireLink:
         """True when any leg scales away from ``current``."""
         return not (self.down_p.is_current and self.up_p.is_current)
 
+    @property
+    def up_is_ef(self) -> bool:
+        """The uplink is error feedback: the round threads per-client state."""
+        return isinstance(self.up_c, ef_lib.ErrorFeedbackCodec)
+
+    @property
+    def dynamic(self) -> bool:
+        """A leg's coded size depends on the data (a ``RansCodec``, maybe under
+        EF): ``wire_bytes`` is then the payloads' true coded size."""
+        return self.down_c.dynamic or self.up_c.dynamic
+
     def scales_init(self, params: dict, spec: wire.WireSpec | None = None):
         """Initial ``ServerState.scales``: a ``(down, up)`` state pair seeded
         from the model's trained clip alphas (``()`` per stateless leg)."""
@@ -331,16 +361,35 @@ class WireLink:
         a0 = scaling_lib.leaf_alphas(params, spec)
         return self.down_p.init_state(a0), self.up_p.init_state(a0)
 
-    def down(self, params: dict, spec: wire.WireSpec, key2: torch.Tensor) -> dict:
-        """Server -> cohort broadcast: one encode, one decode."""
+    def down(self, params: dict, spec: wire.WireSpec, key2: torch.Tensor):
+        """Server -> cohort broadcast, one encode and one decode:
+        ``(received_tree, nbytes)`` of the one copy."""
         return _codec_transit(self.down_c, params, spec, key2)
 
     def up(self, client_params: list[dict], spec: wire.WireSpec,
-           keys: torch.Tensor, ref: dict | None = None) -> list[dict]:
-        """Cohort -> server: one independent payload per client; ``ref`` is
-        the round's reference model (the decoded broadcast)."""
-        return [_codec_transit(self.up_c, p, spec, k, ref=ref)
-                for p, k in zip(client_params, keys)]
+           keys: torch.Tensor, ref: dict | None = None):
+        """Cohort -> server, one independent payload per client: ``(msgs,
+        per_client_nbytes)``; ``ref`` is the round's reference model (the
+        decoded broadcast)."""
+        out = [_codec_transit(self.up_c, p, spec, k, ref=ref)
+               for p, k in zip(client_params, keys)]
+        return [m for m, _ in out], [n for _, n in out]
+
+    def up_ef(self, client_params: list[dict], spec: wire.WireSpec,
+              keys: torch.Tensor, e_sel: torch.Tensor):
+        """Error-feedback uplink: ``(msgs, new_e, per_client_nbytes)``;
+        ``e_sel`` is the cohort's gathered ``(P, spec.total)`` residual rows
+        and ``new_e`` the rows to scatter back."""
+        c = self.up_c
+        if not (c.quantized and spec.q_slots):
+            return client_params, e_sel, [codec_lib.leg_nbytes(c, spec)] * len(client_params)
+        msgs, new_e, payloads = c.up_transit(client_params, spec, keys, e_sel)
+        return msgs, new_e, [c.payload_nbytes_traced(pl, spec) for pl in payloads]
+
+    def leg_bytes(self, spec: wire.WireSpec) -> tuple[int, int]:
+        """Static bytes of one model copy on each leg, ``(down, up)``."""
+        return (codec_lib.leg_nbytes(self.down_c, spec, policy=self.down_p),
+                codec_lib.leg_nbytes(self.up_c, spec, policy=self.up_p))
 
     def down_scaled(self, params: dict, spec: wire.WireSpec, key2: torch.Tensor, st):
         """Scaled broadcast: ``(received_tree, new_state)``. A delayed leg
@@ -445,9 +494,20 @@ class RoundEngine:
                            else MeanAggregator())
         self._local_update = make_local_update(loss_fn, optimizer, cfg)
 
+    @property
+    def dynamic(self) -> bool:
+        """True when a leg's coded size depends on the data: each round's
+        ``wire_bytes`` is then measured, and ``round_bytes`` is its bound."""
+        return self.link.dynamic
+
     def init(self, params: dict) -> ServerState:
+        clients = ()
+        if self.link.up_is_ef:
+            spec = wire.make_wire_spec(params)
+            clients = ef_lib.init_client_state(self.cfg.n_clients, spec,
+                                               device=tree.leaves(params)[0].device)
         return ServerState(params=params, opt=self.aggregator.init(params),
-                           scales=self.link.scales_init(params))
+                           scales=self.link.scales_init(params), clients=clients)
 
     def round_bytes(self, params: dict) -> int:
         """Static per-round wire bytes: P x (down leg + up leg)."""
@@ -480,8 +540,9 @@ class RoundEngine:
         idx = d.cohort
         st_down, st_up = state.scales if link.scaled else ((), ())
         # --- stage 2a: downlink ------------------------------------------
+        down_b, up_b = link.leg_bytes(spec)     # a scaled leg's sizes are static
         if link.down_p.is_current:
-            down = link.down(server_params, spec, d.down_key)
+            down, down_b = link.down(server_params, spec, d.down_key)
         else:
             down, st_down = link.down_scaled(server_params, spec, d.down_key, st_down)
         # --- stage 3: local QAT training over the cohort -----------------
@@ -490,18 +551,26 @@ class RoundEngine:
         # --- stage 2b: uplink --------------------------------------------
         # the decoded broadcast is the round's reference model: every client
         # trained from it, so a delta uplink codes the residual against it
-        if link.up_p.is_current:
-            msgs = link.up(client_params, spec, d.up_keys, ref=down)
+        clients = state.clients
+        if link.up_is_ef:
+            # gather the cohort's residual rows, compensate-encode-update,
+            # scatter the new rows back (client-side memory)
+            msgs, new_e, up_bs = link.up_ef(client_params, spec, d.up_keys,
+                                            clients.resid[idx])
+            clients = clients._replace(resid=clients.resid.index_copy(0, idx, new_e))
+        elif link.up_p.is_current:
+            msgs, up_bs = link.up(client_params, spec, d.up_keys, ref=down)
         else:
             msgs, up_amax = link.up_scaled(client_params, spec, d.up_keys, st_up)
             # next round's uplink scales come from what the server received
             st_up = link.up_p.update(st_up, torch.amax(up_amax, dim=0))
+            up_bs = [up_b] * len(client_params)
         # --- stage 4: server aggregation ---------------------------------
         new_params, new_opt = self.aggregator(server_params, msgs, nk[idx], d,
                                               state.opt)
-        metrics = {
-            "local_loss": torch.mean(losses),
-            "wire_bytes": self.round_bytes(server_params),
-        }
-        return ServerState(new_params, new_opt,
-                           (st_down, st_up) if link.scaled else ()), metrics
+        # P downlink copies + each uplink payload: a Python int on a static
+        # link (the static round bytes), a device scalar on a dynamic one
+        wire_bytes = len(client_params) * down_b + sum(up_bs)
+        metrics = {"local_loss": torch.mean(losses), "wire_bytes": wire_bytes}
+        return ServerState(new_params, new_opt, (st_down, st_up) if link.scaled else (),
+                           clients), metrics

@@ -5,6 +5,11 @@ threading the server state and tracking the exact uplink+downlink wire
 bytes and the centralized test accuracy of the *quantized* server model —
 the quantities in the paper's Table 1 / Figure 2.
 
+Each round charges the ``wire_bytes`` its round function reports: the
+static count, or on a dynamic (entropy-coded) link the measured coded bytes,
+read with one host sync a round; ``bytes_per_round`` stays the static count
+(the bound of a dynamic link).
+
 Each round's randomness comes from a ``torch.Generator`` seeded by
 ``run(seed=...)``, or is injected per round with ``run(draws=[...])``.
 Evaluation under stochastic QAT uses one fixed set of site bits (the

@@ -164,3 +164,21 @@ def unpack_fp8(code: torch.Tensor, alpha: torch.Tensor,
     s = torch.exp2(p_eff.to(torch.float32) - b - fmt.mant)
     mag = v.to(torch.float32) * s
     return torch.where(sign == 1, -mag, mag)
+
+
+def quantization_grid(alpha: float, fmt: FP8Format = E4M3) -> np.ndarray:
+    """All non-negative representable values for clipping value ``alpha``,
+    sorted ascending from 0, in float64 (numpy, as the reference computes
+    it; ``core.entropy`` builds its static tables from it)."""
+    b = float(2.0 ** fmt.exp - np.log2(max(alpha, _ALPHA_FLOOR))
+              + np.log2(fmt.mant_scale) - 1.0)
+    vals = {0.0}
+    # subnormals and exponent code 1 share the scale 2^(1 - b - m)
+    s_sub = 2.0 ** (1.0 - b - fmt.mant)
+    for v in range(1, 2 ** (fmt.mant + 1)):
+        vals.add(v * s_sub)
+    for p in range(2, fmt.max_exp_code + 1):
+        s = 2.0 ** (p - b - fmt.mant)
+        for v in range(2 ** fmt.mant, 2 ** (fmt.mant + 1)):
+            vals.add(v * s)
+    return np.asarray(sorted(vals))

@@ -3,7 +3,9 @@
 Payload sizes are owned by the wire codecs (``core.codec``): the FP8 wire
 is 1 byte/element + FP32 riders, FP4 half a byte/element, a delta leg adds
 one FP32 clip scalar per quantized leaf, an FP32 leg is 4 bytes/element,
-and a scaling policy adds its rider delta (``core.scaling``). Both uplink
+and a scaling policy adds its rider delta (``core.scaling``). An
+entropy-coded (``rans:``) leg counts its static bound here; the bytes it
+really moved are measured by the round (``engine`` ``wire_bytes``). Both uplink
 (P clients -> server) and downlink (server -> P clients) are counted,
 matching Figure 1 of the paper. The paper's headline metric is the
 communication gain: FP32 FedAvg bytes over the method's bytes, each up to

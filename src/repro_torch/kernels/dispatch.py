@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import fp8_quant
+from . import rans as rans_kernel
 from ..core import fp8
 from ..core.fp8 import E4M3, FP4_E2M1, FP8Format
 
@@ -180,3 +181,18 @@ def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
                               fmt: FP8Format = FP4_E2M1):
     """:func:`quant_pack_sub_tiles` + the per-row raw amax ``(R, 1)``."""
     return fp8_quant.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)
+
+
+def rans_encode(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor):
+    """16-lane static-table rANS encode of the (n,) u8 ``syms``: ``(buf (16,
+    cols) u8, state (16,) i32, lens (16,) i32)``, the encode kernel on a CUDA
+    stream, the step-for-step twin on a CPU one (the reference computes it
+    in jnp, ``repro/kernels/rans.py:81``)."""
+    return rans_kernel.rans_encode(syms, freq, cum)
+
+
+def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: int,
+                freq: torch.Tensor, cum: torch.Tensor, slot2sym: torch.Tensor) -> torch.Tensor:
+    """Decode an interleaved-rANS byte stream back to its (n,) u8 symbols: B12
+    on a CUDA payload, the step-for-step twin on a CPU one."""
+    return rans_kernel.rans_decode(buf, state, lens, n, freq, cum, slot2sym)

@@ -292,3 +292,87 @@ def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
     """Twin of ``quant_pack_sub_amax_tiles``: :func:`quant_pack_sub_tiles`
     and the per-row raw amax."""
     return quant_pack_sub_tiles(x2, a2, key2, fmt), _rowmax(x2)
+
+
+# ---------------------------------------------------------------------------
+# static-table rANS (B12 and the encode mirror), ``repro.kernels.rans``
+# ---------------------------------------------------------------------------
+
+SCALE_BITS = 12            # frequency resolution: sum(freq) == 1 << SCALE_BITS
+TAB = 1 << SCALE_BITS
+RANS_L = 1 << 23           # lower bound of the state interval [L, 2**31)
+LANES = 16                 # interleaved independent coder states
+RENORMS = 2                # max bytes emitted/consumed per symbol per lane
+_THRESH_SHIFT = 23 - SCALE_BITS + 8   # encoder renorm threshold: f << 19
+
+
+def n_steps(n_syms: int) -> int:
+    """Rows of ``LANES`` symbols for an n-symbol stream (at least 1)."""
+    return max(1, -(-int(n_syms) // LANES))
+
+
+def buf_cols(n_syms: int) -> int:
+    """Per-lane byte capacity: ``RENORMS`` bytes a row, never overflowed."""
+    return RENORMS * n_steps(n_syms)
+
+
+def _sym_rows(syms: torch.Tensor) -> torch.Tensor:
+    """(n,) symbols -> (steps, LANES) int64 rows, zero-padded at the tail."""
+    n = syms.numel()
+    rows = torch.zeros(n_steps(n) * LANES, dtype=torch.int64, device=syms.device)
+    rows[:n] = syms.reshape(-1).to(torch.int64)
+    return rows.reshape(-1, LANES)
+
+
+def rans_encode(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor):
+    """Twin of ``rans_encode``: (n,) symbols in [0, 256) against the (256,)
+    table -> ``(buf (LANES, buf_cols(n)) u8, state (LANES,) i32, lens
+    (LANES,) i32)``. Rows are coded in reverse, low byte first; a lane that
+    does not emit writes to the sentinel column ``cols``, which is dropped,
+    so the buffer past each lane's ``lens`` stays zero."""
+    rows = _sym_rows(syms)
+    cols = buf_cols(syms.numel())
+    dev = syms.device
+    f_rows, c_rows = freq.to(torch.int64)[rows], cum.to(torch.int64)[rows]
+    lane = torch.arange(LANES, device=dev)
+    x = torch.full((LANES,), RANS_L, dtype=torch.int64, device=dev)
+    ptr = torch.zeros(LANES, dtype=torch.int64, device=dev)
+    buf = torch.zeros((LANES, cols + 1), dtype=torch.uint8, device=dev)
+    sentinel = torch.full_like(ptr, cols)
+    for t in range(rows.shape[0] - 1, -1, -1):
+        f, c = f_rows[t], c_rows[t]
+        thresh = f << _THRESH_SHIFT
+        for _ in range(RENORMS):
+            emit = x >= thresh
+            buf[lane, torch.where(emit, ptr, sentinel)] = (x & 0xFF).to(torch.uint8)
+            x = torch.where(emit, x >> 8, x)
+            ptr = ptr + emit.to(torch.int64)
+        x = ((x // f) << SCALE_BITS) + (x % f) + c
+    return buf[:, :cols].contiguous(), x.to(torch.int32), ptr.to(torch.int32)
+
+
+def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: int,
+                freq: torch.Tensor, cum: torch.Tensor, slot2sym: torch.Tensor) -> torch.Tensor:
+    """Twin of ``_decode_step`` / ``rans_decode_jnp``: pop ``LANES`` symbols a
+    row, renormalizing by reading each lane's stream backward from
+    ``lens - 1``; the byte is read at ``clip(rpos, 0, cols - 1)`` whether or
+    not it is needed. Returns (n,) u8 symbols."""
+    steps, cols = n_steps(n), buf.shape[1]
+    dev = buf.device
+    b = buf.to(torch.int64)
+    freq, cum, s2s = (t.to(torch.int64) for t in (freq, cum, slot2sym))
+    lane = torch.arange(LANES, device=dev)
+    x = state.to(torch.int64)
+    rpos = lens.to(torch.int64) - 1
+    out = torch.empty((steps, LANES), dtype=torch.int64, device=dev)
+    for t in range(steps):
+        slot = x & (TAB - 1)
+        sym = s2s[slot]
+        x = freq[sym] * (x >> SCALE_BITS) + slot - cum[sym]
+        for _ in range(RENORMS):
+            need = x < RANS_L
+            byte = b[lane, torch.clamp(rpos, 0, cols - 1)]
+            x = torch.where(need, (x << 8) | byte, x)
+            rpos = rpos - need.to(torch.int64)
+        out[t] = sym
+    return out.reshape(-1)[:n].to(torch.uint8)

@@ -270,3 +270,101 @@ def test_format_round_on_the_card_runs_the_new_kernels(dev):
             assert fp8_quant.LAUNCHES[name] > 0, (kw, name)
         if kw.get("down_codec") == "fp4":   # no FP8 encode on an FP4 link
             assert fp8_quant.LAUNCHES["quant_pack_tiles"] == 0
+
+
+# --- the rANS pair (B12 decode, and the encode): integer-only, bitwise ------
+
+
+def _rans_table(fmt, sigma, dev):
+    from repro_torch.core import entropy
+
+    return tuple(torch.from_numpy(a).to(dev) for a in entropy.byte_table(fmt, sigma))
+
+
+def _rans_stream(kind, n, s2s_cpu, seed):
+    g = torch.Generator().manual_seed(seed)
+    if kind == "random":
+        return torch.randint(0, 256, (n,), generator=g).to(torch.uint8)
+    if kind == "peaked":
+        return s2s_cpu[torch.randint(0, 4096, (n,), generator=g)].to(torch.uint8)
+    return torch.full((n,), 255, dtype=torch.uint8)     # the table's least likely end
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4416, 8832, 68325])
+@pytest.mark.parametrize("kind", ["random", "peaked", "improbable"])
+@pytest.mark.parametrize("fmt,sigma", [(E4M3, 0.28), (FP4_E2M1, 0.14)])
+def test_rans_pair_bitwise_against_twins(dev, n, kind, fmt, sigma):
+    from repro_torch.kernels import rans
+
+    freq, cum, s2s = _rans_table(fmt, sigma, dev)
+    syms = _rans_stream(kind, n, s2s.cpu(), n).to(dev)
+    buf, state, lens = rans.rans_encode(syms, freq, cum)
+    tbuf, tstate, tlens = ref.rans_encode(syms, freq, cum)
+    assert torch.equal(buf, tbuf) and torch.equal(state, tstate) and torch.equal(lens, tlens)
+    out = dispatch.rans_decode(buf, state, lens, n, freq, cum, s2s)
+    assert torch.equal(out, syms)
+    assert torch.equal(out, ref.rans_decode(buf, state, lens, n, freq, cum, s2s))
+
+
+def test_rans_large_stream_roundtrips(dev):
+    """8191 x 1024 symbols (524k rows a lane): the step-by-step twin is too
+    slow on the card here, so the pair is held to decode(encode(s)) == s."""
+    from repro_torch.kernels import rans
+
+    freq, cum, s2s = _rans_table(E4M3, 0.28, dev)
+    syms = _rans_stream("peaked", 8191 * 1024, s2s.cpu(), 3).to(dev)
+    buf, state, lens = rans.rans_encode(syms, freq, cum)
+    assert int(lens.sum()) < syms.numel()
+    assert torch.equal(rans.rans_decode(buf, state, lens, syms.numel(), freq, cum, s2s), syms)
+
+
+def test_rans_wrappers_count_and_validate(dev):
+    from repro_torch.kernels import rans
+
+    freq, cum, s2s = _rans_table(E4M3, 0.28, dev)
+    syms = torch.arange(100, dtype=torch.uint8, device=dev)
+    before = dict(fp8_quant.LAUNCHES)
+    buf, state, lens = rans.rans_encode(syms, freq, cum)
+    rans.rans_decode(buf, state, lens, 100, freq, cum, s2s)
+    for name in ("rans_encode", "rans_decode"):
+        assert fp8_quant.LAUNCHES[name] == before[name] + 1, name
+    with pytest.raises(TypeError, match="uint8"):
+        rans.rans_encode(syms.int(), freq, cum)
+    with pytest.raises(TypeError, match="int32"):
+        rans.rans_encode(syms, freq.long(), cum)
+    with pytest.raises(ValueError, match=r"\(256,\)"):
+        rans.rans_encode(syms, freq[:255].contiguous(), cum)
+    with pytest.raises(ValueError, match="16"):
+        rans.rans_decode(buf[:, :3].contiguous(), state, lens, 100, freq, cum, s2s)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        rans.rans_decode(buf, state.cpu(), lens, 100, freq, cum, s2s)
+
+
+def test_pareto_round_on_the_card_runs_the_rans_pair(dev):
+    """An ef:rans uplink under a rans downlink on the card: each rANS kernel
+    launches once per payload (1 downlink + 2 uplinks a round), the measured
+    bytes stay under the bound, and exactly the cohort's residual rows move."""
+    from repro_torch import optim
+    from repro_torch.core.engine import FedConfig
+    from repro_torch.core.fedsim import FedSim
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.data import partition_iid, synthetic_classification
+    from repro_torch.models import small
+
+    x, y = synthetic_classification(0, 200, d=32, n_classes=10)
+    cx, cy, nk = partition_iid(x, y, k=4, seed=0)
+    cfg = FedConfig(n_clients=4, participation=0.5, local_steps=2, batch_size=8,
+                    qat=QATConfig(), down_codec="rans:fp4_e2m1",
+                    up_codec="ef:rans:fp4_e2m1_det")
+    p = small.init_mlp(0, device=dev)
+    sim = FedSim(p, small.make_loss(small.apply_mlp), small.apply_mlp, optim.sgd(0.05), cfg,
+                 cx, cy, nk, device=dev)
+    draw = sim.engine.draw(torch.Generator().manual_seed(0), sim.nk.cpu(), cx.shape[1])
+    fp8_quant.reset_launches()
+    h = sim.run(1, draws=[draw], eval_data=(x[:64], y[:64]), eval_every=1)
+    torch.cuda.synchronize()
+    for name in ("rans_encode", "rans_decode"):
+        assert fp8_quant.LAUNCHES[name] == 3, name
+    assert 0 < h.cumulative_bytes[0] < sim.bytes_per_round
+    moved = torch.nonzero(sim.state.clients.resid.abs().sum(1) > 0).reshape(-1).cpu()
+    assert sorted(moved.tolist()) == sorted(draw.cohort.tolist())

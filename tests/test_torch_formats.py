@@ -69,6 +69,8 @@ from repro_torch.models import small as t_small
 from test_torch_grid import reference_draws
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
+# the ablation sections this file covers (pareto: tests/test_torch_pareto.py)
+FORMAT_SECTIONS = ("format", "scaling")
 
 # the reference's bytes per round of each ablation cell (MLP d_in 64, 10
 # classes, K=10, C=0.3), as BENCH_formats.json holds them
@@ -240,10 +242,10 @@ def test_cells_follow_the_reference_benchmark():
     want = [("format", "fp32", dict(comm_mode="none"))]
     want += [("format", f"{c}|{r}", ref._legs(c, r)) for c in ref.CODECS for r in ref.ROUNDINGS]
     want += [("scaling", c, dict(comm_mode="rand", **kw)) for c, kw in ref.SCALINGS]
-    assert t_fa.cells() == want and len(want) == 18
+    assert t_fa.cells(FORMAT_SECTIONS) == want and len(want) == 18
 
 
-@pytest.mark.parametrize("section,cell,kw", t_fa.cells())
+@pytest.mark.parametrize("section,cell,kw", t_fa.cells(FORMAT_SECTIONS))
 def test_cell_bytes_match_reference(section, cell, kw):
     """The 18 cells at the reference's configuration: the port's bytes per
     round are the reference's ``round_bytes_for`` and BENCH_formats.json's."""
@@ -289,13 +291,13 @@ TINY = dict(rounds=2, n=240, n_train=200, k=4, c=0.5, local_steps=2, batch=8, ev
 def test_format_driver_rows_carry_the_reference_bytes():
     """``repro_torch.bench.format_ablation`` on the CPU at a tiny scale: one
     row per cell, each with the reference's exact bytes per round."""
-    rows = list(t_fa.iter_rows(device="cpu", scale=TINY))
+    rows = list(t_fa.iter_rows(device="cpu", sections=FORMAT_SECTIONS, scale=TINY))
     assert [r["comm_fmt"] for r in rows] == [
-        c if s == "format" else f"e4m3|rand|{c}" for s, c, _ in t_fa.cells()]
+        c if s == "format" else f"e4m3|rand|{c}" for s, c, _ in t_fa.cells(FORMAT_SECTIONS)]
     rp = r_small.init_mlp(jax.random.PRNGKey(0), d_in=64, n_classes=10)
     base = dict(n_clients=4, participation=0.5, local_steps=2, batch_size=8, qat=RQAT())
     fp32 = r_metrics.round_bytes_for(rp, RCfg(**base, comm_mode="none"))
-    for (_, _, kw), r in zip(t_fa.cells(), rows):
+    for (_, _, kw), r in zip(t_fa.cells(FORMAT_SECTIONS), rows):
         ref = r_metrics.round_bytes_for(rp, RCfg(**base, **kw))
         assert type(r["round_bytes"]) is int and r["round_bytes"] == ref, r
         assert r["comm_gain_vs_fp32"] == round(fp32 / ref, 3)
@@ -312,10 +314,11 @@ def test_format_driver_sections_and_device():
     rows = list(t_fa.iter_rows(device="cpu", sections=("scaling",),
                                 scale={**TINY, "rounds": 1}))
     assert [r["scaling"] for r in rows] == [c for c, _ in t_fa.SCALINGS]
+    # pareto is a section now (tests/test_torch_pareto.py); an unknown one raises
     with pytest.raises(ValueError, match="pareto"):
-        list(t_fa.iter_rows(device="cpu", sections=("pareto",)))
+        list(t_fa.iter_rows(device="cpu", sections=("bogus",)))
     with pytest.raises(SystemExit):
-        t_fa.main(["--sections", "pareto"])
+        t_fa.main(["--sections", "bogus"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_fa.main(["--rounds", "1"])
