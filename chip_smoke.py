@@ -7,7 +7,7 @@ Phases, each fatal on failure (the script then exits non-zero):
 
 1. set-up: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``); turns TF32 off for matmuls and cuDNN
-   convolutions; builds the thirteen CUDA kernels from ``src/repro_torch/
+   convolutions; builds the sixteen CUDA kernels from ``src/repro_torch/
    kernels/csrc`` (``nvcc``, one process per source, at first use) and
    prints the build time.
 2. each kernel against its plain PyTorch twin on the card, at the shapes
@@ -77,12 +77,28 @@ Phases, each fatal on failure (the script then exits non-zero):
    each of the FP4, the E4M3 delayed, the FP4 delayed and the ``fp4|ef+rans``
    LeNet cell is profiled, for the kernels' device time per launch.
 
+7. federated LM fine-tuning on full-width TinyLlama-1.1B (run after phase
+   4, before 6): B10 ``qat_matmul`` and both B11 kernels (``qat_matmul_dx``,
+   ``qat_matmul_dw``) bitwise against their twins at every distinct
+   projection shape of a local step (the port's init weights, activations
+   of a real forward) and at a ragged (77, 130, 200), clip cotangents
+   within GA_RTOL, each timed beside its twin, ``torch.matmul`` on the
+   pre-quantized operands and its bound (``lm_kernel_phase``, right after
+   phase 2); one reduced-TinyLlama local step on the card against the CPU
+   twins (``lm_card_vs_cpu_phase``, after phase 3); then
+   ``repro_torch.bench.fed_lm`` at the example's defaults for 2 rounds, the
+   counters zeroed just before and read just after: 8802606752 wire bytes a
+   round, 5184 launches of each B10/B11 kernel a round, 5 of each wire
+   kernel, a finite loss; prints s/round, the peak device memory and the
+   profiled second round's device busy (``lm_main_path_phase``).
+
 The second-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -154,6 +170,9 @@ KERNEL_INFO = {   # name: (source under csrc/, file:line of the TPU kernel in sr
     "rans_decode": ("rans.cu", "rans.py:187"),
     # no TPU kernel, so it replaces none; it mirrors the reference's lax.scan encode
     "rans_encode": ("rans.cu", None),
+    "qat_matmul": ("qat_matmul.cu", "fp8_matmul.py:54"),
+    "qat_matmul_dx": ("qat_matmul.cu", "fp8_matmul.py:172"),
+    "qat_matmul_dw": ("qat_matmul.cu", "fp8_matmul.py:222"),
 }
 MIRRORS = {"rans_encode": "src/repro/kernels/rans.py:81"}
 RANS_KERNELS = ("rans_encode", "rans_decode")
@@ -1074,6 +1093,284 @@ def grid_phase(dev) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: federated LM fine-tuning (full-width TinyLlama-1.1B) on B10/B11
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "tinyllama_1_1b"
+LM_ROUNDS = 2
+LM_ROUND_BYTES = 8802606752         # 4 clients x 2 legs x 1100325844 (reference integer)
+LM_STEP_LAUNCHES = 22 * 7 + 8       # each B10/B11 kernel: 7 projections a layer + 8 CE chunks
+LM_ROUND_LAUNCHES = 4 * 8 * LM_STEP_LAUNCHES   # P = 4 clients x U = 8 local steps
+LM_WIRE_LAUNCHES = 5                # quant_pack_tiles / unpack_tiles: 1 down + 4 up
+LM_RAGGED = (77, 130, 200)          # (M, K, N), no dimension a tile multiple
+LM_MAIN_SHAPE = (256, 2048, 5632)   # w_gate / w_up, the largest share of a step's products
+BF16_OPS_PER_S = 989e12             # H100 SXM dense bf16 tensor cores (the product's floor:
+                                    # grid values are exact in bf16)
+QAT_MATMUL = ("qat_matmul", "qat_matmul_dx", "qat_matmul_dw")
+QAT_GEMM_INSTANCE = {   # the template instance of csrc/qat_matmul.cu each wrapper launches
+    "qat_matmul": "qat_gemm_kernel<false, false, true, true, false>",
+    "qat_matmul_dx": "qat_gemm_kernel<false, true, false, true, true>",
+    "qat_matmul_dw": "qat_gemm_kernel<true, false, true, false, true>",
+}
+
+
+def _lm_projection_cases(dev) -> list:
+    """The operands of each distinct projection shape of one full-width
+    TinyLlama-1.1B local step (batch 4 x 64 tokens): the port's init weights
+    (layer 0, each alpha = max|w| of its layer, so an element sits on the
+    clip) and the activations of a real forward on client 0's tokens, with
+    their LSQ-scaled clip values as the model hands them to the kernels."""
+    from repro_torch import configs
+    from repro_torch.bench import fed_lm
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+
+    cfg = configs.get(LM_ARCH)
+    model = registry.get_model(cfg)
+    params = model.init(0, device=dev)
+    x, y = fed_lm.client_data(1, 1, 64, cfg.vocab)
+    seen = {}
+    real = dispatch.qat_matmul
+
+    def record(x2, w, beta, alpha, fmt):
+        key = (x2.shape[0], x2.shape[1], w.shape[1])
+        if key not in seen:
+            seen[key] = tuple(t.detach().clone() for t in (x2, w, beta, alpha))
+        return real(x2, w, beta, alpha, fmt)
+
+    dispatch.qat_matmul = record
+    try:
+        with torch.no_grad():
+            model.train_loss(params, {"tokens": x[0, :4].to(dev), "labels": y[0, :4].to(dev)},
+                             QATConfig())
+    finally:
+        dispatch.qat_matmul = real
+    del params
+    torch.cuda.empty_cache()
+    return [(f"tinyllama {k}", *v) for k, v in seen.items()]
+
+
+def lm_kernel_phase(dev) -> dict:
+    """B10 and both B11 kernels against their twins at every distinct
+    projection shape of the LM path and at a ragged shape: out, gx and gw
+    bitwise, g_beta / g_alpha within GA_RTOL. The cotangent is
+    ``|N(0, 1)| * sign(out)``, the gradient of a weighted L1 of the output, so
+    ``g @ wq^T`` leans with x and the clip sums do not cancel. Times: the
+    wrapper call and the twin (CUDA events), and ``torch.matmul`` on the
+    pre-quantized operands (TF32 off), the one PyTorch call for the same
+    product. Bound: bytes (each input read once, each output written once)
+    over 3.35 TB/s or 2 M N K over the bf16 dense peak, the larger."""
+    from repro_torch.kernels import fp8_matmul as FM
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator().manual_seed(7)
+    t_phase = time.perf_counter()
+    cases = _lm_projection_cases(dev)
+    print(f"[lm-kernels] operands of a full-width forward in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    m, k, n = LM_RAGGED
+    w = (torch.randn((k, n), generator=g) / math.sqrt(k)).to(dev)
+    cases.append(("ragged", (torch.randn((m, k), generator=g) * 1.5).to(dev), w,
+                  torch.tensor(2.5, device=dev), w.abs().max().reshape(1, 1)))
+    worst = dict.fromkeys(QAT_MATMUL, 0.0)
+    timings = {name: {} for name in QAT_MATMUL}
+    for label, x, w, beta, alpha in cases:
+        t_case = time.perf_counter()
+        m, k, n = x.shape[0], x.shape[1], w.shape[1]
+        out = FM.qat_matmul(x, w, beta, alpha)
+        rout = R.qat_matmul(x, w, beta, alpha)
+        bad, err = mismatches(out, rout)
+        check(bad == 0, f"qat_matmul {label} {(m, k, n)}: {bad} of {out.numel()} differ")
+        worst["qat_matmul"] = max(worst["qat_matmul"], err)
+        gr = (torch.randn((m, n), generator=g).abs().to(dev) * torch.sign(rout)).contiguous()
+        clips = {}
+        for name in ("qat_matmul_dx", "qat_matmul_dw"):
+            got, gc = getattr(FM, name)(gr, x, w, beta, alpha)
+            want, wc = getattr(R, name)(gr, x, w, beta, alpha)
+            bad, err = mismatches(got, want)
+            rel = abs(float(gc) - float(wc)) / max(abs(float(wc)), 1e-30)
+            check(bad == 0, f"{name} {label} {(m, k, n)}: {bad} of {got.numel()} differ")
+            check(rel <= GA_RTOL, f"{name} {label}: clip cotangent rel err {rel:.3g}")
+            worst[name] = max(worst[name], err, abs(float(gc) - float(wc)))
+            clips[name] = (float(gc), float(wc), rel)
+        xq, wq = R.quant_det(x, beta), R.quant_det(w, alpha)
+        ops = 2.0 * m * k * n
+        io = {"qat_matmul": 4.0 * (m * k + k * n + m * n),
+              "qat_matmul_dx": 4.0 * (m * n + k * n + 2 * m * k),
+              "qat_matmul_dw": 4.0 * (m * n + m * k + 2 * k * n)}
+        calls = {
+            "qat_matmul": (lambda: FM.qat_matmul(x, w, beta, alpha),
+                           lambda: R.qat_matmul(x, w, beta, alpha),
+                           lambda: torch.matmul(xq, wq)),
+            "qat_matmul_dx": (lambda: FM.qat_matmul_dx(gr, x, w, beta, alpha),
+                              lambda: R.qat_matmul_dx(gr, x, w, beta, alpha),
+                              lambda: torch.matmul(gr, wq.t())),
+            "qat_matmul_dw": (lambda: FM.qat_matmul_dw(gr, x, w, beta, alpha),
+                              lambda: R.qat_matmul_dw(gr, x, w, beta, alpha),
+                              lambda: torch.matmul(xq.t(), gr)),
+        }
+        for name, (kern, twin, lib) in calls.items():
+            b_ms, b_by = max((io[name] / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (ops / BF16_OPS_PER_S * 1e3, "operations"))
+            timings[name][(m, k, n)] = {
+                "ms": time_ms(kern, reps=5, iters=10, warmup=2),
+                "plain_ms": time_ms(twin, reps=3, iters=1, warmup=1),
+                "library_ms": time_ms(lib, reps=5, iters=10, warmup=2),
+                "bound_ms": b_ms, "bound_by": b_by, "shape": [m, k, n]}
+        t = {name: timings[name][(m, k, n)] for name in QAT_MATMUL}
+        print(f"[lm-kernels] {label} (M, K, N) = {(m, k, n)}: bitwise; "
+              + "; ".join(f"{name} {t[name]['ms']:.4f} ms (twin {t[name]['plain_ms']:.2f}, "
+                          f"matmul {t[name]['library_ms']:.4f}, bound {t[name]['bound_ms']:.5f} "
+                          f"{t[name]['bound_by']})" for name in QAT_MATMUL)
+              + "; clip cotangents kernel/twin/rel "
+              + ", ".join(f"{a:.9g}/{b:.9g}/{r:.2g}" for a, b, r in clips.values())
+              + f" ({time.perf_counter() - t_case:.1f} s)")
+        del xq, wq, gr
+    print(f"[lm-kernels] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"worst": worst, "timings": timings}
+
+
+def lm_card_vs_cpu_phase(dev) -> None:
+    """One reduced-TinyLlama local step (loss, every gradient, one AdamW(1e-3)
+    update) on the card against the same step on the CPU twins, from the
+    same weights and tokens. The kernels equal the twins bitwise on one
+    device; the card's bf16 elementwise ops, exp / rsqrt / sin / cos and
+    attention sums differ from the CPU's in the last bits, and an FP8
+    activation code near a midpoint then takes the other grid point and
+    moves its token row: the bars of the CPU parity test against the
+    reference (``tests/test_torch_lm.py``): loss within 2e-3, each weight,
+    norm and embedding gradient within 0.25 of its magnitude sum, each clip
+    gradient within 0.25 of the largest, each updated parameter within 2 lr
+    (AdamW's first step is +-lr an element). Each B10/B11 kernel must launch
+    once a projection (3 layers x 7 + 2 CE chunks)."""
+    from repro_torch import configs, optim, tree
+    from repro_torch.bench import fed_lm
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.models import registry
+
+    cfg = configs.reduced(configs.get(LM_ARCH))
+    model = registry.get_model(cfg)
+    x, y = fed_lm.client_data(1, 1, 64, cfg.vocab)
+    p_cpu = model.init(0, device="cpu")
+    lr = 1e-3
+    out = {}
+    t_phase = time.perf_counter()
+    for where in ("cpu", dev):
+        p = tree.tree_map(lambda t: t.to(where), p_cpu)
+        names = [n for n, _ in tree.flatten(p)]
+        leaves = [t.detach().clone().requires_grad_() for t in tree.leaves(p)]
+        K.reset_launches()
+        loss = model.train_loss(tree.unflatten(names, leaves),
+                                {"tokens": x[0].to(where), "labels": y[0].to(where)},
+                                QATConfig())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(v) if gr is None else gr for v, gr in zip(leaves, grads)]
+        opt = optim.adamw(lr, weight_decay=0.01)
+        upd, _ = opt.update(tree.unflatten(names, grads), opt.init(p), p, 0)
+        new = optim.apply_updates(p, upd)
+        synchronize()
+        launches = dict(K.LAUNCHES)
+        out[str(where)] = (float(loss.detach()), dict(zip(names, grads)), new, launches)
+    (l_c, g_c, p_c, _), (l_g, g_g, p_g, launches) = out["cpu"], out[str(dev)]
+    for name in QAT_MATMUL:
+        check(launches[name] == 3 * 7 + 2, f"lm step on the card: {name} launched "
+              f"{launches[name]} times, not 23")
+    clip_scale = max(float(v.abs().max()) for n, v in g_c.items()
+                     if n.endswith(("_qa", "_qb")))
+    worst_w = worst_c = 0.0
+    for name, r in g_c.items():
+        d = (g_g[name].cpu().double() - r.double()).abs()
+        if name.endswith(("_qa", "_qb")):
+            worst_c = max(worst_c, float(d.max()) / clip_scale)
+        else:
+            worst_w = max(worst_w, float(d.sum()) / max(float(r.double().abs().sum()), 1e-30))
+    p_ref = dict(tree.flatten(p_c))
+    worst_p = max(float((v.cpu() - p_ref[n]).abs().max()) for n, v in tree.flatten(p_g))
+    print(f"[lm-round] reduced tinyllama local step, card vs CPU twins: loss {l_g:.7f} vs "
+          f"{l_c:.7f}; worst weight-gradient gap {worst_w:.3g} of its magnitude sum, worst "
+          f"clip-gradient gap {worst_c:.3g} of the largest; updated params within "
+          f"{worst_p:.3g} (2 lr = {2 * lr}); B10/B11 launches {[launches[k] for k in QAT_MATMUL]} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    check(abs(l_g - l_c) <= 2e-3 * abs(l_c), f"lm step: loss {l_g} vs cpu {l_c}")
+    check(worst_w <= 0.25 and worst_c <= 0.25, "lm step: a gradient is beyond its bar")
+    check(worst_p <= 2 * lr + 1e-6, f"lm step: a parameter moved {worst_p} apart")
+
+
+def _profile_kernels(prof, wall_us: float, s_round: float, label: str) -> dict:
+    """Device busy share and the top kernels of a ``torch.profiler`` window;
+    returns the device us per launch of each B10/B11 kernel."""
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
+    busy = sum(dev_time(e) for e in rows)
+    print(f"[profile] {label}: device busy {busy / 1e3:.1f} ms = "
+          f"{100 * busy / (s_round * 1e6):.1f}% of the unprofiled {s_round:.3f} s round "
+          f"({100 * busy / wall_us:.1f}% of the profiled wall {wall_us / 1e6:.3f} s), "
+          f"{len(rows)} kernel names")
+    for e in sorted(rows, key=dev_time, reverse=True)[:14]:
+        print(f"[profile]   {dev_time(e) / 1e3:10.3f} ms  x{e.count:<7d} {e.key[:100]}")
+    per_launch = {}
+    for name, inst in QAT_GEMM_INSTANCE.items():
+        for e in rows:
+            if inst in e.key:
+                per_launch[name] = dev_time(e) / max(e.count, 1)
+                print(f"[profile] ours: {name:14s} x{e.count:<6d} "
+                      f"{per_launch[name]:.2f} us of device time per launch")
+    return {"busy_ms": busy / 1e3, "device_us": per_launch}
+
+
+def lm_main_path_phase(dev) -> dict:
+    """``repro_torch.bench.fed_lm`` on full-width TinyLlama-1.1B with the
+    example's defaults (8 clients, 4 active, 8 local AdamW steps at batch 4,
+    sequence 64, det E4M3 QAT, the E4M3 stochastic wire both ways, the
+    weighted mean), 2 rounds, the counters zeroed just before and read just
+    after; the second round runs under ``torch.profiler``. Each round's wire
+    bytes must be the reference's 8802606752, each B10/B11 kernel must
+    launch 5184 times a round and the wire pair 5 times, and the loss must
+    be finite."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench import fed_lm
+    from repro_torch.kernels import fp8_quant as K
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    wrap = lambda r: prof if r == LM_ROUNDS - 1 else contextlib.nullcontext()
+    K.reset_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    rows = fed_lm.run(arch=LM_ARCH, rounds=LM_ROUNDS, device=dev, wrap_round=wrap,
+                      log=lambda s: print(f"[lm] {s}"))
+    synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    for r in rows:
+        check(r["wire_bytes"] == LM_ROUND_BYTES,
+              f"lm round {r['round']}: wire bytes {r['wire_bytes']} != {LM_ROUND_BYTES}")
+        check(math.isfinite(r["local_loss"]), f"lm round {r['round']}: loss {r['local_loss']}")
+        for name in QAT_MATMUL:
+            check(r["launches"][name] == LM_ROUND_LAUNCHES,
+                  f"lm round {r['round']}: {name} launched {r['launches'][name]} times, "
+                  f"not {LM_ROUND_LAUNCHES}")
+        for name in ("quant_pack_tiles", "unpack_tiles"):
+            check(r["launches"][name] == LM_WIRE_LAUNCHES,
+                  f"lm round {r['round']}: {name} launched {r['launches'][name]} times")
+    for name in QAT_MATMUL:
+        check(launches[name] == LM_ROUNDS * LM_ROUND_LAUNCHES, f"{name}: {launches[name]}")
+    s_round = rows[0]["s_per_round"]
+    peak = max(r["peak_mem_bytes"] for r in rows)
+    print(f"[lm] full tinyllama, {LM_ROUNDS} rounds in {wall:.1f} s: s/round "
+          f"{[round(r['s_per_round'], 3) for r in rows]} (round 2 profiled), loss "
+          f"{[round(r['local_loss'], 4) for r in rows]}, wire bytes/round "
+          f"{rows[0]['wire_bytes']}, peak device memory {peak} B "
+          f"({peak / 2 ** 30:.2f} GiB), launches {launches}")
+    prof_wall = rows[-1]["s_per_round"] * 1e6
+    stats = _profile_kernels(prof, prof_wall, s_round, "lm round 2")
+    return {"launches": launches, "s_per_round": s_round, "peak_mem_bytes": peak, **stats}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1101,13 +1398,20 @@ def main() -> int:
     rans_kern = rans_kernel_phase(dev)
     kern["worst"].update(rans_kern["worst"])
     kern["timings"].update(rans_kern["timings"])
+    lm_kern = lm_kernel_phase(dev)
+    kern["worst"].update(lm_kern["worst"])
     round_phase(dev)
+    lm_card_vs_cpu_phase(dev)
     main_path_phase(dev, "uq")
     uqp = main_path_phase(dev, "uq+")
+    lm = lm_main_path_phase(dev)
+    torch.cuda.empty_cache()
     fmt = format_phase(dev)
     grid = grid_phase(dev)
 
     def path(name: str) -> tuple[str, int]:
+        if name in QAT_MATMUL:
+            return (f"fed_lm full-width {LM_ARCH}, {LM_ROUNDS} rounds", lm["launches"][name])
         if name in FORMAT_KERNELS:
             return ("format ablation (18 MLP cells, 4 cifar10-lenet cells)",
                     fmt["launches"][name])
@@ -1120,9 +1424,22 @@ def main() -> int:
 
     rows = []
     for name in K.KERNELS:
-        t = kern["timings"][name]["main"]
         source, replaces = KERNEL_INFO[name]
         label, launches = path(name)
+        if name in QAT_MATMUL:
+            t = lm_kern["timings"][name][LM_MAIN_SHAPE]
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+                "path": label, "max_abs_err": kern["worst"][name],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "shape")},
+                "device_us": lm["device_us"].get(name),
+                "shapes": list(lm_kern["timings"][name].values()),
+            })
+            continue
+        t = kern["timings"][name]["main"]
         extra = {}
         if name in FORMAT_KERNELS:
             extra = {"mlp": kern["timings"][name]["mlp"], "device_us": fmt["device_us"][

@@ -291,6 +291,17 @@ def _codec_transit(codec: WireCodec, params: dict, spec: wire.WireSpec,
             codec.payload_nbytes_traced(payload, spec))
 
 
+def _drain(client_params: list[dict]):
+    """Hand out the cohort's trained models front to back, removing each from
+    the list. Every uplink of :class:`WireLink` consumes its
+    ``client_params`` this way: the list is empty when it returns, and on the
+    per-client uplinks each model is freed once its payload is decoded, so at
+    most one model copy more than the messages is alive (4.4 GB a copy at
+    TinyLlama's full width)."""
+    while client_params:
+        yield client_params.pop(0)
+
+
 @dataclasses.dataclass(frozen=True)
 class WireLink:
     """Both legs of the model exchange, each a ``WireCodec`` (an instance or a
@@ -370,20 +381,25 @@ class WireLink:
            keys: torch.Tensor, ref: dict | None = None):
         """Cohort -> server, one independent payload per client: ``(msgs,
         per_client_nbytes)``; ``ref`` is the round's reference model (the
-        decoded broadcast)."""
-        out = [_codec_transit(self.up_c, p, spec, k, ref=ref)
-               for p, k in zip(client_params, keys)]
-        return [m for m, _ in out], [n for _, n in out]
+        decoded broadcast). Consumes ``client_params`` (see :func:`_drain`)."""
+        msgs, nbytes = [], []
+        for p, k in zip(_drain(client_params), keys):
+            m, n = _codec_transit(self.up_c, p, spec, k, ref=ref)
+            msgs.append(m)
+            nbytes.append(n)
+        return msgs, nbytes
 
     def up_ef(self, client_params: list[dict], spec: wire.WireSpec,
               keys: torch.Tensor, e_sel: torch.Tensor):
         """Error-feedback uplink: ``(msgs, new_e, per_client_nbytes)``;
         ``e_sel`` is the cohort's gathered ``(P, spec.total)`` residual rows
-        and ``new_e`` the rows to scatter back."""
+        and ``new_e`` the rows to scatter back. Consumes ``client_params``
+        (see :func:`_drain`)."""
         c = self.up_c
+        P = len(client_params)
         if not (c.quantized and spec.q_slots):
-            return client_params, e_sel, [codec_lib.leg_nbytes(c, spec)] * len(client_params)
-        msgs, new_e, payloads = c.up_transit(client_params, spec, keys, e_sel)
+            return list(_drain(client_params)), e_sel, [codec_lib.leg_nbytes(c, spec)] * P
+        msgs, new_e, payloads = c.up_transit(list(_drain(client_params)), spec, keys, e_sel)
         return msgs, new_e, [c.payload_nbytes_traced(pl, spec) for pl in payloads]
 
     def leg_bytes(self, spec: wire.WireSpec) -> tuple[int, int]:
@@ -412,13 +428,15 @@ class WireLink:
                   keys: torch.Tensor, st):
         """Scaled uplink: ``(msgs, up_amax)``. Every client encodes at the
         same effective scales (the server's history); ``up_amax`` is the
-        ``(cohort, n_q)`` per-client amax for the caller's history update."""
+        ``(cohort, n_q)`` per-client amax for the caller's history update.
+        Consumes ``client_params`` (see :func:`_drain`)."""
         c, pol = self.up_c, self.up_p
         if not spec.q_slots:
-            return client_params, st.new_zeros((len(client_params), 0))
+            P = len(client_params)
+            return list(_drain(client_params)), st.new_zeros((P, 0))
         a_eff = pol.effective(st)
         msgs, amax = [], []
-        for p, k in zip(client_params, keys):
+        for p, k in zip(_drain(client_params), keys):
             payload, am = c.encode_scaled(p, spec, k, a_eff, with_amax=True)
             msgs.append(c.decode_scaled(payload, spec))
             amax.append(am)
@@ -445,7 +463,9 @@ class MeanAggregator:
         return ()
 
     def __call__(self, server_params, msgs: list[dict], nk, draws, opt_state):
-        return weighted_mean(_stack(msgs), nk), ()
+        # stacked one leaf at a time, not the whole cohort at once (the same
+        # arithmetic): a full-width LM cannot hold a second cohort copy
+        return tree.tree_map(lambda *xs: weighted_mean(torch.stack(xs), nk), *msgs), ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -548,6 +568,7 @@ class RoundEngine:
         # --- stage 3: local QAT training over the cohort -----------------
         client_params, losses = self.executor(
             self._local_update, down, data[idx], labels[idx], d.batches, d.qat_bits)
+        P = len(client_params)       # the uplink empties the list (``_drain``)
         # --- stage 2b: uplink --------------------------------------------
         # the decoded broadcast is the round's reference model: every client
         # trained from it, so a delta uplink codes the residual against it
@@ -564,13 +585,13 @@ class RoundEngine:
             msgs, up_amax = link.up_scaled(client_params, spec, d.up_keys, st_up)
             # next round's uplink scales come from what the server received
             st_up = link.up_p.update(st_up, torch.amax(up_amax, dim=0))
-            up_bs = [up_b] * len(client_params)
+            up_bs = [up_b] * P
         # --- stage 4: server aggregation ---------------------------------
         new_params, new_opt = self.aggregator(server_params, msgs, nk[idx], d,
                                               state.opt)
         # P downlink copies + each uplink payload: a Python int on a static
         # link (the static round bytes), a device scalar on a dynamic one
-        wire_bytes = len(client_params) * down_b + sum(up_bs)
+        wire_bytes = P * down_b + sum(up_bs)
         metrics = {"local_loss": torch.mean(losses), "wire_bytes": wire_bytes}
         return ServerState(new_params, new_opt, (st_down, st_up) if link.scaled else (),
                            clients), metrics

@@ -66,14 +66,21 @@ def is_clip_key(name: str) -> bool:
     return name.endswith(QA_SUFFIX) or name.endswith(QB_SUFFIX)
 
 
-def alpha_like(w: torch.Tensor) -> torch.Tensor:
-    """Paper's alpha init: per-tensor max |w|."""
+def alpha_like(w: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    """Paper's alpha init: per-tensor max |w| (per layer when ``stacked``:
+    shape ``(L, 1, ..., 1)`` over the leading layer axis)."""
+    if stacked:
+        return torch.amax(torch.abs(w), dim=tuple(range(1, w.dim())),
+                          keepdim=True).to(torch.float32)
     return torch.max(torch.abs(w)).to(torch.float32)
 
 
-def beta_init(value: float = 4.0) -> torch.Tensor:
-    """Activation clipping init (refined online by the learnable beta)."""
-    return torch.tensor(value, dtype=torch.float32)
+def beta_init(value: float = 4.0, stacked_layers: int | None = None) -> torch.Tensor:
+    """Activation clipping init (refined online by the learnable beta); one
+    per layer, shape ``(L,)``, when ``stacked_layers`` is given."""
+    if stacked_layers is None:
+        return torch.tensor(value, dtype=torch.float32)
+    return torch.full((stacked_layers,), value, dtype=torch.float32)
 
 
 def _lsq_grad_scale(alpha: torch.Tensor, n_elements: int,

@@ -47,6 +47,24 @@ __device__ __forceinline__ float scale(float p, float b, const Fmt& f) {
   return exp2f((p - b) - (float)f.mant);
 }
 
+// The straight-through backward of Q_det at one element x with clip a (bias
+// b): the mask 1{|x| <= a} (*inside) and the factor of the clip cotangent,
+// sign(x) * 1{|x| > a} + (q - y) * s / a (*route), as fp8_quant.py's
+// _quant_bwd_kernel computes them. The QAT backward (quant_det_bwd.cu) and
+// the fused products' backward (qat_matmul.cu) both call it.
+__device__ __forceinline__ void ste_terms(float x, float a, float b,
+                                          const Fmt& f, float* inside,
+                                          float* route) {
+  const float in = fabsf(x) <= a ? 1.0f : 0.0f;
+  const float xc = clip(x, a);
+  const float s = scale(exponent(xc, b), b, f);
+  const float y = xc / s;
+  const float q = rintf(y);
+  const float sg = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  *inside = in;
+  *route = sg * (1.0f - in) + (q - y) * s / a;
+}
+
 // murmur3 finalizer: fp8_quant.py::_fmix32 in native uint32 arithmetic
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;

@@ -25,16 +25,11 @@ __global__ void quant_det_bwd_kernel(const float* __restrict__ x,
   float acc = 0.0f;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float xi = x[i];
     const float gi = g[i];
-    const float inside = fabsf(xi) <= a ? 1.0f : 0.0f;
-    const float xc = fp8::clip(xi, a);
-    const float s = fp8::scale(fp8::exponent(xc, b), b, f);
-    const float y = xc / s;
-    const float q = rintf(y);
+    float inside, route;
+    fp8::ste_terms(x[i], a, b, f, &inside, &route);
     gx[i] = gi * inside;
-    const float sg = xi > 0.0f ? 1.0f : (xi < 0.0f ? -1.0f : 0.0f);
-    acc += gi * (sg * (1.0f - inside) + (q - y) * s / a);
+    acc += gi * route;
   }
   const float total = fp8::block_sum(acc, sh);
   if (threadIdx.x == 0) partial[blockIdx.x] = total;

@@ -9,7 +9,10 @@ raises), a CPU tensor runs the kernel's plain twin in ``kernels.ref``.
 ``quantize_det`` and ``quantize_rand`` are ``torch.autograd.Function`` classes:
 the forward is the ``quant_det`` / ``quant_rand`` kernel, the backward the
 ``quant_det_bwd`` / ``quant_rand_bwd`` kernel (the paper's straight-through
-estimator in closed form). ``fake_quant_plane`` (the UQ+ server step) runs
+estimator in closed form). ``qat_matmul`` is one too: the forward is the B10
+kernel ``Q_det(x; beta) @ Q_det(w; alpha)``, the backward the two B11 kernels
+(dx, then dw), as ``repro/kernels/dispatch.py:206-245`` wires them.
+``fake_quant_plane`` (the UQ+ server step) runs
 the ``fake_quant_tiles`` kernel forward; its backward is the reference's
 elementwise STE in plain torch, as the reference computes it in jnp outside
 any kernel (``repro/kernels/dispatch.py:457-469``). At an element exactly on the
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fp8_quant
+from . import fp8_matmul, fp8_quant
 from . import rans as rans_kernel
 from ..core import fp8
 from ..core.fp8 import E4M3, FP4_E2M1, FP8Format
@@ -98,6 +101,40 @@ def quantize_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
             f"and a one-element alpha, got x {tuple(x.shape)}, alpha "
             f"{tuple(alpha.shape)} (the stacked-alpha kernel is not ported yet)")
     return fp8.quantize_rand(x, alpha, bits, fmt)
+
+
+class _QatMatmulSTE(torch.autograd.Function):
+    """The fused QAT product: B10 forward; B11 dx and dw backward, both run
+    on every backward pass as the reference's VJP runs them."""
+
+    @staticmethod
+    def forward(ctx, x, w, beta, alpha, fmt):
+        ctx.fmt = fmt
+        ctx.save_for_backward(x, w, beta, alpha)
+        return fp8_matmul.qat_matmul(x, w, beta, alpha, fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, beta, alpha = ctx.saved_tensors
+        g = g.contiguous()
+        gx, gb = fp8_matmul.qat_matmul_dx(g, x, w, beta, alpha, ctx.fmt)
+        gw, ga = fp8_matmul.qat_matmul_dw(g, x, w, beta, alpha, ctx.fmt)
+        return gx, gw, gb.reshape(beta.shape), ga.reshape(alpha.shape), None
+
+
+def qat_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+               alpha: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """``Q_det(x; beta) @ Q_det(w; alpha)`` with f32 accumulation through the
+    B10/B11 kernels: 2-D f32 operands and one-element clips (a per-layer
+    ``(1, 1)`` slice of a stacked clip is one). The clip gradients come back
+    in the clips' own shapes. Other shapes raise: ``models.common.dense``
+    sends only these here, and takes the ``aq``/``wq`` chain otherwise."""
+    if x.dim() != 2 or w.dim() != 2 or beta.numel() != 1 or alpha.numel() != 1:
+        raise ValueError(
+            f"qat_matmul takes 2-D x and w and one-element clips, got x {tuple(x.shape)}, "
+            f"w {tuple(w.shape)}, beta {tuple(beta.shape)}, alpha {tuple(alpha.shape)}")
+    return _QatMatmulSTE.apply(x.contiguous(), w.contiguous(), beta.to(torch.float32),
+                               alpha.to(torch.float32), fmt)
 
 
 class _FakeQuantPlaneSTE(torch.autograd.Function):

@@ -2,8 +2,9 @@
 
 The CUDA C++ sources under ``csrc/`` port eleven Pallas kernels of
 ``repro.kernels.fp8_quant``, each wrapper here named after the Pallas
-kernel it replaces (the rANS pair of ``csrc/rans.cu`` is built into the same
-library; its wrappers are in ``kernels.rans``):
+kernel it replaces (the rANS pair of ``csrc/rans.cu`` and the fused QAT
+matrix products of ``csrc/qat_matmul.cu`` are built into the same library;
+their wrappers are in ``kernels.rans`` and ``kernels.fp8_matmul``):
 
 * ``quant_det``                 — ``csrc/quant_det.cu``
 * ``quant_det_bwd``             — ``csrc/quant_det_bwd.cu``
@@ -47,7 +48,7 @@ from ..core.fp8 import E4M3, FP4_E2M1, FP8Format
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("quant_det.cu", "quant_det_bwd.cu", "quant_pack.cu", "unpack.cu",
            "fake_quant.cu", "quant_rand.cu", "quant_pack_sub.cu", "quant_pack_amax.cu",
-           "rans.cu")
+           "rans.cu", "qat_matmul.cu")
 HEADERS = ("fp8_common.cuh", "reduce.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,7 +60,7 @@ LANE = ref.LANE
 KERNELS = ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles",
            "fake_quant_tiles", "quant_rand", "quant_rand_bwd", "quant_pack_sub_tiles",
            "unpack_sub_tiles", "quant_pack_amax_tiles", "quant_pack_sub_amax_tiles",
-           "rans_encode", "rans_decode")
+           "rans_encode", "rans_decode", "qat_matmul", "qat_matmul_dx", "qat_matmul_dw")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib: ctypes.CDLL | None = None
@@ -152,13 +153,20 @@ def load() -> ctypes.CDLL:
                                                     *fmt_args, p]
         lib.repro_rans_encode.argtypes = [p, i64, i64, i64, p, p, p, p, p, p]
         lib.repro_rans_decode.argtypes = [p, i64, p, p, i64, i64, p, p, p, p, p]
+        lib.repro_qat_matmul_blocks.argtypes = [i32, i32]
+        lib.repro_qat_matmul.argtypes = [p, p, p, p, p, i32, i32, i32, *fmt_args, p]
+        lib.repro_qat_matmul_dx.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i32,
+                                            *fmt_args, p]
+        lib.repro_qat_matmul_dw.argtypes = lib.repro_qat_matmul_dx.argtypes
         for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_blocks,
                    lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
                    lib.repro_unpack_tiles, lib.repro_fake_quant_tiles,
                    lib.repro_quant_rand, lib.repro_quant_rand_bwd,
                    lib.repro_quant_pack_sub_tiles, lib.repro_unpack_sub_tiles,
                    lib.repro_quant_pack_amax_tiles, lib.repro_rans_encode,
-                   lib.repro_rans_decode):
+                   lib.repro_rans_decode, lib.repro_qat_matmul_blocks,
+                   lib.repro_qat_matmul, lib.repro_qat_matmul_dx,
+                   lib.repro_qat_matmul_dw):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -376,3 +376,48 @@ def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: i
             rpos = rpos - need.to(torch.int64)
         out[t] = sym
     return out.reshape(-1)[:n].to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# B10/B11: the fused QAT matrix products (csrc/qat_matmul.cu)
+# ---------------------------------------------------------------------------
+#
+# Each output is summed over the reduction index in ascending order, one
+# product at a time, mul and add rounded separately: the kernel's order, so
+# the twin is bitwise equal to it on the same card (``torch.matmul`` sums in
+# another order). The backward's epilogue is ``quant_det_bwd`` of the forward
+# operand, with the summed product as its cotangent.
+
+
+def qat_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+               alpha: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``qat_matmul`` (B10): ``Q_det(x; beta) @ Q_det(w; alpha)``,
+    x (M, K), w (K, N) f32, summed over k in ascending order."""
+    xq = quant_det(x, beta, fmt)
+    wq = quant_det(w, alpha, fmt)
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for k in range(x.shape[1]):
+        acc.add_(xq[:, k:k + 1] * wq[k:k + 1, :])
+    return acc
+
+
+def qat_matmul_dx(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  beta: torch.Tensor, alpha: torch.Tensor, fmt: FP8Format = E4M3):
+    """Twin of ``qat_matmul_dx`` (B11): ``(gx, g_beta)``, ``g @ wq^T`` summed
+    over n in ascending order, masked and routed at x's clip ``beta``."""
+    wq = quant_det(w, alpha, fmt)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for n in range(g.shape[1]):
+        acc.add_(g[:, n:n + 1] * wq[:, n].reshape(1, -1))
+    return quant_det_bwd(x, beta, acc, fmt)
+
+
+def qat_matmul_dw(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  beta: torch.Tensor, alpha: torch.Tensor, fmt: FP8Format = E4M3):
+    """Twin of ``qat_matmul_dw`` (B11): ``(gw, g_alpha)``, ``xq^T @ g`` summed
+    over m in ascending order, masked and routed at w's clip ``alpha``."""
+    xq = quant_det(x, beta, fmt)
+    acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for m in range(g.shape[0]):
+        acc.add_(xq[m].reshape(-1, 1) * g[m:m + 1, :])
+    return quant_det_bwd(w, alpha, acc, fmt)

@@ -1,1 +1,2 @@
-"""Models of the port (``small``: MLP and LeNet)."""
+"""Models of the port: ``small`` (MLP, LeNet, KWT) and the dense LM
+(``common``, ``attention``, ``transformer``, ``registry``)."""

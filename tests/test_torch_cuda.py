@@ -368,3 +368,95 @@ def test_pareto_round_on_the_card_runs_the_rans_pair(dev):
     assert 0 < h.cumulative_bytes[0] < sim.bytes_per_round
     moved = torch.nonzero(sim.state.clients.resid.abs().sum(1) > 0).reshape(-1).cpu()
     assert sorted(moved.tolist()) == sorted(draw.cohort.tolist())
+
+
+QAT_MATMUL = ("qat_matmul", "qat_matmul_dx", "qat_matmul_dw")
+
+
+def _matmul_case(m, k, n, seed, dev):
+    x = _randn((m, k), seed, 1.5, dev)
+    w = _randn((k, n), seed + 1, 1.0 / np.sqrt(k), dev)
+    beta = torch.tensor(2.5, device=dev)
+    alpha = w.abs().max().reshape(1, 1)           # max|w| sits on the clip
+    out = ref.qat_matmul(x, w, beta, alpha)
+    g = _randn((m, n), seed + 2, 1.0, dev).abs() * torch.sign(out)
+    return x, w, beta, alpha, g
+
+
+@pytest.mark.parametrize("shape", [(77, 130, 200), (1, 1, 1), (64, 16, 64), (256, 2048, 256),
+                                   (32, 2048, 1000)])
+def test_qat_matmul_kernels_bitwise_against_twins(dev, shape):
+    from repro_torch.kernels import fp8_matmul
+    x, w, beta, alpha, g = _matmul_case(*shape, 21, dev)
+    assert torch.equal(fp8_matmul.qat_matmul(x, w, beta, alpha),
+                       ref.qat_matmul(x, w, beta, alpha))
+    for name in ("qat_matmul_dx", "qat_matmul_dw"):
+        got, gc = getattr(fp8_matmul, name)(g, x, w, beta, alpha)
+        want, wc = getattr(ref, name)(g, x, w, beta, alpha)
+        assert torch.equal(got, want), name
+        np.testing.assert_allclose(float(gc), float(wc), rtol=1e-5, err_msg=name)
+
+
+def test_qat_matmul_dispatch_launches_the_kernels_never_the_twins(dev, monkeypatch):
+    from repro_torch.kernels import fp8_matmul
+    x, w, beta, alpha, g = _matmul_case(40, 70, 90, 31, dev)
+    for name in QAT_MATMUL:
+        monkeypatch.setattr(ref, name, lambda *a, _n=name, **k: pytest.fail(f"twin {_n} ran"))
+    x.requires_grad_()
+    w.requires_grad_()
+    b = beta.clone().requires_grad_()
+    a = alpha.clone().requires_grad_()
+    before = dict(fp8_quant.LAUNCHES)
+    out = dispatch.qat_matmul(x, w, b, a)
+    out.backward(g)
+    torch.cuda.synchronize()
+    for name in QAT_MATMUL:
+        assert fp8_quant.LAUNCHES[name] == before[name] + 1, name
+    assert b.grad.shape == () and a.grad.shape == (1, 1)
+    monkeypatch.undo()
+    want, _ = ref.qat_matmul_dx(g, x.detach(), w.detach(), beta, alpha)
+    assert torch.equal(x.grad, want)
+    with pytest.raises(ValueError, match="contiguous"):
+        fp8_matmul.qat_matmul(x.detach().t().contiguous().t(), w.detach(), beta, alpha)
+    with pytest.raises(ValueError, match="one value"):
+        fp8_matmul.qat_matmul(x.detach(), w.detach(), torch.ones(2, device=dev), alpha)
+
+
+def test_tf32_is_off_after_an_entry_point_resolves_the_card(dev):
+    from repro_torch import convert
+    from repro_torch.device import resolve_device
+    from repro_torch.models import small
+
+    entry_points = (lambda: resolve_device("cuda"),
+                    lambda: small.init_mlp(0, device="cuda"),
+                    lambda: convert.from_jax_params({"w": np.zeros((2, 2), np.float32)}))
+    for enter in entry_points:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        enter()
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+
+
+def test_lm_step_on_the_card_runs_only_the_kernels(dev):
+    """A reduced TinyLlama loss and backward on the card: every projection
+    launches B10 once and each B11 kernel once (3 layers x 7 + 2 CE chunks)."""
+    from repro_torch import configs, tree
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.models import registry
+
+    cfg = configs.reduced(configs.get("tinyllama_1_1b"))
+    model = registry.get_model(cfg)
+    p = model.init(0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (4, 65), generator=torch.Generator().manual_seed(0))
+    toks = toks.to(dev)
+    leaves = [t.requires_grad_() for t in tree.leaves(p)]
+    names = [n for n, _ in tree.flatten(p)]
+    before = dict(fp8_quant.LAUNCHES)
+    loss = model.train_loss(tree.unflatten(names, leaves),
+                            {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, QATConfig())
+    loss.backward()
+    torch.cuda.synchronize()
+    for name in QAT_MATMUL:
+        assert fp8_quant.LAUNCHES[name] == before[name] + 3 * 7 + 2, name
+    assert bool(torch.isfinite(loss))

@@ -138,3 +138,32 @@ def test_init_without_device_raises_on_cpu_only_host():
         t_small.init_lenet(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.from_jax_params({"w": np.zeros((2, 2), np.float32)})
+
+
+def test_sgd_takes_the_reference_positional_order():
+    """``sgd(lr, momentum, weight_decay, wd_mask, nesterov, trust_mask,
+    trust_frac)`` as in the reference: a momentum call raises instead of
+    silently running weight decay 0.9, and ``trust_frac`` is honoured."""
+    with pytest.raises(NotImplementedError, match="momentum"):
+        t_optim.sgd(0.1, 0.9)
+    with pytest.raises(NotImplementedError, match="nesterov"):
+        t_optim.sgd(0.1, nesterov=True)
+    p, _, _, _ = _setup("mlp")
+    g = jax.tree.map(lambda a: jnp.asarray(
+        np.random.default_rng(a.size + 1).standard_normal(a.shape).astype(np.float32)), p)
+    args = (0.0, 1e-3, r_qat.weight_decay_mask(p), False, r_qat.clip_value_mask(p), 0.005)
+    ropt = r_optim.sgd(0.05, *args)
+    rupd, _ = ropt.update(g, ropt.init(p), p, 0)
+    tp = convert.from_jax_params(_np_tree(p), device="cpu")
+    tg = convert.from_jax_params(_np_tree(g), device="cpu")
+    targs = (0.0, 1e-3, t_qat.weight_decay_mask(tp), False, t_qat.clip_value_mask(tp), 0.005)
+    topt = t_optim.sgd(0.05, *targs)
+    tupd, _ = topt.update(tg, topt.init(tp), tp, 0)
+    ref = dict(tree.flatten(_np_tree(rupd)))
+    for n, v in tree.flatten(tupd):
+        np.testing.assert_array_equal(v.numpy(), ref[n], err_msg=n)
+    # the trust region bites at 0.005: some clip update sits on its limit
+    clipped = [n for n, v in tree.flatten(tupd) if n.endswith(("_qa", "_qb"))
+               and float(v.abs()) == pytest.approx(
+                   0.005 * float(dict(tree.flatten(tp))[n].abs()), rel=1e-6)]
+    assert clipped
