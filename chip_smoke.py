@@ -7,7 +7,7 @@ Phases, each fatal on failure (the script then exits non-zero):
 
 1. set-up: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``); turns TF32 off for matmuls and cuDNN
-   convolutions; builds the sixteen CUDA kernels from ``src/repro_torch/
+   convolutions; builds the nineteen CUDA kernels from ``src/repro_torch/
    kernels/csrc`` (``nvcc``, one process per source, at first use) and
    prints the build time.
 2. each kernel against its plain PyTorch twin on the card, at the shapes
@@ -56,7 +56,8 @@ Phases, each fatal on failure (the script then exits non-zero):
    each path is profiled.
 5. the method grid: ``repro_torch.bench.table1`` on cifar10-lenet,
    cifar100-mlp and speech-kwt, iid and Dir(0.3), fp32/uq/uq+, at the
-   reference driver's CPU-budget scale (20 rounds, eval every 5); every
+   reference driver's CPU-budget scale cut to 10 of its 20 rounds (eval
+   every 5), which keeps the whole run well inside its limit; every
    ``bytes_per_round`` must be the reference's integer.
    Then the rand-qat / rand-qat-only cells of ``repro_torch.bench.table2``
    on cifar100-mlp at its default scale: the stochastic-QAT path, driven
@@ -91,6 +92,26 @@ Phases, each fatal on failure (the script then exits non-zero):
    round, 5184 launches of each B10/B11 kernel a round, 5 of each wire
    kernel, a finite loss; prints s/round, the peak device memory and the
    profiled second round's device busy (``lm_main_path_phase``).
+8. the one-device LM trainer (``repro_torch.launch.train``): B7
+   ``quant_det_tiles`` / ``quant_det_tiles_bwd`` against their twins at the
+   full-width TinyLlama-1.1B plane (1,074,176 x 1024), the reduced model's
+   plane and a ragged plane of stacked segments (out and gx bitwise, each
+   row's clip cotangent within GA_RTOL of its terms' magnitude sum), B9
+   ``fake_quant_amax_tiles`` (det and counter-RNG, alpha column and per
+   element, at (135, 1024) and (8191, 1024): values bitwise against B5, row
+   max equal to ``torch.amax``) and the bf16 B1/B2 instances at the
+   trainer's activation shapes, each timed beside its twin and bound
+   (``trainer_kernel_phase``, after phase 7's kernels); a reduced-TinyLlama
+   train step on the card against the CPU twins at opt_level 1, 0 and 2
+   (``trainer_card_vs_cpu_phase``, after phase 3) and B9's only caller,
+   ``dispatch.fake_quant_amax_plane``, once on LeNet's plane
+   (``b9_path_phase``); then, last before phase 6, ``launch.train`` at the
+   reference's defaults (full-width TinyLlama-1.1B, batch 8 x 128, AdamW
+   3e-4, opt_level 1) for 20 steps with the counters zeroed just before and
+   read just after: one B7 forward and one backward a step, B1/B2 at every
+   activation site (162 a step), no B10/B11, finite losses; s/step,
+   tokens/s, peak memory, one profiled step; then 2 steps at opt_level 0:
+   B10/B11 at every projection, no B7 (``trainer_main_path_phase``).
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it); the last line is
@@ -125,7 +146,7 @@ GRID_BYTES = {
     ("speech-kwt", "uq+"): 722856,
 }
 TABLE2_BYTES = {"rand-qat": 124224, "rand-qat-only": 474432}
-GRID_ROUNDS, GRID_EVAL_EVERY = 20, 5    # the reference driver's CPU-budget scale
+GRID_ROUNDS, GRID_EVAL_EVERY = 10, 5    # 10 of the reference driver's 20 CPU-budget rounds
 # the reference's bytes per round of the format ablation's cells (MLP d_in 64,
 # 10 classes, K=10, C=0.3), and of the cifar10-lenet format cells (K=10, C=0.3)
 FORMAT_BYTES = {
@@ -173,6 +194,9 @@ KERNEL_INFO = {   # name: (source under csrc/, file:line of the TPU kernel in sr
     "qat_matmul": ("qat_matmul.cu", "fp8_matmul.py:54"),
     "qat_matmul_dx": ("qat_matmul.cu", "fp8_matmul.py:172"),
     "qat_matmul_dw": ("qat_matmul.cu", "fp8_matmul.py:222"),
+    "quant_det_tiles": ("quant_det_tiles.cu", "fp8_quant.py:529"),
+    "quant_det_tiles_bwd": ("quant_det_tiles.cu", "fp8_quant.py:553"),
+    "fake_quant_amax_tiles": ("fake_quant.cu", "fp8_quant.py:987"),
 }
 MIRRORS = {"rans_encode": "src/repro/kernels/rans.py:81"}
 RANS_KERNELS = ("rans_encode", "rans_decode")
@@ -1105,6 +1129,7 @@ LM_ROUND_LAUNCHES = 4 * 8 * LM_STEP_LAUNCHES   # P = 4 clients x U = 8 local ste
 LM_WIRE_LAUNCHES = 5                # quant_pack_tiles / unpack_tiles: 1 down + 4 up
 LM_RAGGED = (77, 130, 200)          # (M, K, N), no dimension a tile multiple
 LM_MAIN_SHAPE = (256, 2048, 5632)   # w_gate / w_up, the largest share of a step's products
+TRAIN_BATCH = (8, 128)              # launch.train's default batch x sequence
 BF16_OPS_PER_S = 989e12             # H100 SXM dense bf16 tensor cores (the product's floor:
                                     # grid values are exact in bf16)
 QAT_MATMUL = ("qat_matmul", "qat_matmul_dx", "qat_matmul_dw")
@@ -1116,14 +1141,17 @@ QAT_GEMM_INSTANCE = {   # the template instance of csrc/qat_matmul.cu each wrapp
 
 
 def _lm_projection_cases(dev) -> list:
-    """The operands of each distinct projection shape of one full-width
-    TinyLlama-1.1B local step (batch 4 x 64 tokens): the port's init weights
-    (layer 0, each alpha = max|w| of its layer, so an element sits on the
-    clip) and the activations of a real forward on client 0's tokens, with
+    """The operands of each distinct projection shape of the two LM paths
+    that run B10/B11 at full width (TinyLlama-1.1B): one ``fed_lm`` local
+    step (batch 4 x 64 tokens, client 0's) and one ``launch.train`` step at
+    opt_level 0 (batch 8 x 128, the trainer's first batch at seed 0). The
+    port's init weights (layer 0, each alpha = max|w| of its layer, so an
+    element sits on the clip) and the activations of a real forward, with
     their LSQ-scaled clip values as the model hands them to the kernels."""
     from repro_torch import configs
     from repro_torch.bench import fed_lm
     from repro_torch.core.qat import QATConfig
+    from repro_torch.data import LMBatcher, silo_stream
     from repro_torch.kernels import dispatch
     from repro_torch.models import registry
 
@@ -1131,30 +1159,38 @@ def _lm_projection_cases(dev) -> list:
     model = registry.get_model(cfg)
     params = model.init(0, device=dev)
     x, y = fed_lm.client_data(1, 1, 64, cfg.vocab)
-    seen = {}
+    b, seq = TRAIN_BATCH
+    trainer = LMBatcher(silo_stream(cfg.vocab, b * (seq + 1) * 64, 0, 0), b, seq)(0)
+    cases = []
     real = dispatch.qat_matmul
+    for label, batch in (("tinyllama 4x64", {"tokens": x[0, :4], "labels": y[0, :4]}),
+                         (f"trainer {b}x{seq}", {k: torch.from_numpy(v)
+                                                 for k, v in trainer.items()})):
+        seen = {}
 
-    def record(x2, w, beta, alpha, fmt):
-        key = (x2.shape[0], x2.shape[1], w.shape[1])
-        if key not in seen:
-            seen[key] = tuple(t.detach().clone() for t in (x2, w, beta, alpha))
-        return real(x2, w, beta, alpha, fmt)
+        def record(x2, w, beta, alpha, fmt):
+            key = (x2.shape[0], x2.shape[1], w.shape[1])
+            if key not in seen:
+                seen[key] = tuple(t.detach().clone() for t in (x2, w, beta, alpha))
+            return real(x2, w, beta, alpha, fmt)
 
-    dispatch.qat_matmul = record
-    try:
-        with torch.no_grad():
-            model.train_loss(params, {"tokens": x[0, :4].to(dev), "labels": y[0, :4].to(dev)},
-                             QATConfig())
-    finally:
-        dispatch.qat_matmul = real
+        dispatch.qat_matmul = record
+        try:
+            with torch.no_grad():
+                model.train_loss(params, {k: v.to(dev) for k, v in batch.items()},
+                                 QATConfig())
+        finally:
+            dispatch.qat_matmul = real
+        cases += [(f"{label} {k}", *v) for k, v in seen.items()]
     del params
     torch.cuda.empty_cache()
-    return [(f"tinyllama {k}", *v) for k, v in seen.items()]
+    return cases
 
 
 def lm_kernel_phase(dev) -> dict:
     """B10 and both B11 kernels against their twins at every distinct
-    projection shape of the LM path and at a ragged shape: out, gx and gw
+    projection shape of the LM paths (``fed_lm`` and the trainer at
+    opt_level 0) and at a ragged shape: out, gx and gw
     bitwise, g_beta / g_alpha within GA_RTOL. The cotangent is
     ``|N(0, 1)| * sign(out)``, the gradient of a weighted L1 of the output, so
     ``g @ wq^T`` leans with x and the clip sums do not cancel. Times: the
@@ -1168,7 +1204,7 @@ def lm_kernel_phase(dev) -> dict:
     g = torch.Generator().manual_seed(7)
     t_phase = time.perf_counter()
     cases = _lm_projection_cases(dev)
-    print(f"[lm-kernels] operands of a full-width forward in "
+    print(f"[lm-kernels] operands of two full-width forwards in "
           f"{time.perf_counter() - t_phase:.1f} s")
     m, k, n = LM_RAGGED
     w = (torch.randn((k, n), generator=g) / math.sqrt(k)).to(dev)
@@ -1299,21 +1335,23 @@ def lm_card_vs_cpu_phase(dev) -> None:
     check(worst_p <= 2 * lr + 1e-6, f"lm step: a parameter moved {worst_p} apart")
 
 
-def _profile_kernels(prof, wall_us: float, s_round: float, label: str) -> dict:
+def _profile_kernels(prof, wall_us: float, s_round: float, label: str,
+                     instances: dict | None = None) -> dict:
     """Device busy share and the top kernels of a ``torch.profiler`` window;
-    returns the device us per launch of each B10/B11 kernel."""
+    returns the device us per launch of each kernel in ``instances`` (name:
+    its CUDA name; the B10/B11 kernels by default)."""
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
     busy = sum(dev_time(e) for e in rows)
     print(f"[profile] {label}: device busy {busy / 1e3:.1f} ms = "
-          f"{100 * busy / (s_round * 1e6):.1f}% of the unprofiled {s_round:.3f} s round "
+          f"{100 * busy / (s_round * 1e6):.1f}% of the unprofiled {s_round:.3f} s "
           f"({100 * busy / wall_us:.1f}% of the profiled wall {wall_us / 1e6:.3f} s), "
           f"{len(rows)} kernel names")
     for e in sorted(rows, key=dev_time, reverse=True)[:14]:
         print(f"[profile]   {dev_time(e) / 1e3:10.3f} ms  x{e.count:<7d} {e.key[:100]}")
     per_launch = {}
-    for name, inst in QAT_GEMM_INSTANCE.items():
+    for name, inst in (instances or QAT_GEMM_INSTANCE).items():
         for e in rows:
             if inst in e.key:
                 per_launch[name] = dev_time(e) / max(e.count, 1)
@@ -1371,6 +1409,456 @@ def lm_main_path_phase(dev) -> dict:
     return {"launches": launches, "s_per_round": s_round, "peak_mem_bytes": peak, **stats}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the one-device LM trainer (full-width TinyLlama-1.1B) on B7
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20                    # of launch.train at the reference's defaults
+TRAIN_PROFILED = 10                 # the step run under torch.profiler
+TRAIN_OPT0_STEPS = 2                # opt_level 0: every projection on B10/B11
+FULL_PLANE_ROWS = 1074176           # 43008 rows a layer x 22 + lm_head and embed 64000 each
+TRAIN_KERNELS = ("quant_det_tiles", "quant_det_tiles_bwd")
+TRAINER_INSTANCES = {   # kernel: its CUDA name in a profile
+    "quant_det_tiles": "quant_det_tiles_kernel",
+    "quant_det_tiles_bwd": "quant_det_tiles_bwd_kernel",
+    "quant_det": "quant_det_kernel<__nv_bfloat16>",
+    "quant_det_bwd": "quant_det_bwd_kernel<__nv_bfloat16>",
+}
+
+
+def _b7_case(label, x, col, g, worst, timed: bool) -> dict:
+    """B7 forward and backward against their twins: out and gx bitwise,
+    each row's clip cotangent within GA_RTOL of its terms' magnitude sum
+    (g signed like x, so the clipped terms add up). ``timed``: each beside
+    its twin and its bound."""
+    from repro_torch.core.fp8 import E4M3
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.kernels import ref as R
+
+    n, rows = x.numel(), x.shape[0]
+    bad, err = mismatches(K.quant_det_tiles(x, col), R.quant_det_tiles(x, col))
+    worst["quant_det_tiles"] = max(worst["quant_det_tiles"], err)
+    check(bad == 0, f"quant_det_tiles {label} {tuple(x.shape)}: {bad} of {n} differ")
+    gx, ga = K.quant_det_tiles_bwd(x, col, g)
+    rgx, rga = R.quant_det_tiles_bwd(x, col, g)
+    bad, err = mismatches(gx, rgx)
+    del gx, rgx
+    torch.cuda.empty_cache()
+    # a row's clip terms inside the clip, g * (q - y) * s / a, take either
+    # sign whatever g's, so a row sum may cancel: each row is held to its
+    # terms' magnitude sum (the twin's own terms)
+    mag = R._ste(x, col, g, E4M3)[1].abs_().sum(dim=1, keepdim=True)
+    torch.cuda.empty_cache()
+    rel = float(((ga - rga).abs() / mag.clamp(min=1e-30)).max())
+    worst["quant_det_tiles_bwd"] = max(worst["quant_det_tiles_bwd"], err,
+                                       float((ga - rga).abs().max()))
+    check(bad == 0, f"quant_det_tiles_bwd gx {label}: {bad} of {n} differ")
+    check(rel <= GA_RTOL, f"quant_det_tiles_bwd ga_row {label}: {rel:.3g} of its terms' "
+          "magnitude sum")
+    print(f"[trainer-kernels] B7 {label} {tuple(x.shape)}: out and gx bitwise, ga_row within "
+          f"{rel:.3g} of its terms' magnitude sum (worst row)")
+    if not timed:
+        return {}
+    cases = {"quant_det_tiles": (lambda: K.quant_det_tiles(x, col),
+                                 lambda: R.quant_det_tiles(x, col), 8 * n + 4 * rows, 15 * n),
+             "quant_det_tiles_bwd": (lambda: K.quant_det_tiles_bwd(x, col, g),
+                                     lambda: R.quant_det_tiles_bwd(x, col, g),
+                                     12 * n + 8 * rows, 25 * n)}
+    out = {}
+    for name, (kern, twin, n_bytes, n_ops) in cases.items():
+        b_ms, b_by = bound(n_bytes, n_ops)
+        out[name] = dict(ms=time_ms(kern, reps=5, iters=10, warmup=2),
+                         plain_ms=time_ms(twin, reps=3, iters=1, warmup=1),
+                         bound_ms=b_ms, bound_by=b_by, shape=list(x.shape))
+        torch.cuda.empty_cache()
+        print(f"[time] {name:19s} {label:9s} {str(tuple(x.shape)):16s} kernel "
+              f"{out[name]['ms']:.5f} ms  twin {out[name]['plain_ms']:.5f} ms  bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    return out
+
+
+def trainer_kernel_phase(dev) -> dict:
+    """The trainer's kernels against their twins on the card: B7 at the
+    full-width TinyLlama-1.1B plane (its init weights packed as the trainer
+    packs them, each row with its segment's clip), at the reduced model's
+    plane and at a ragged multi-block plane of stacked segments; B9 in both
+    RNG modes and both alpha layouts at LeNet's plane (135, 1024) and at
+    (8191, 1024), its values bitwise against B5 (kernel and twin) and its
+    row max equal to ``torch.amax``; the bf16 B1/B2 instances at the
+    trainer's activation shapes (batch 8 x 128 tokens). Each is timed beside
+    its twin and its bound."""
+    from repro_torch import configs
+    from repro_torch.core import plane
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(11)
+    worst = dict.fromkeys((*TRAIN_KERNELS, "fake_quant_amax_tiles"), 0.0)
+    timings = {}
+
+    def signed_like(x):
+        return (torch.randn(x.shape, generator=g).abs().to(dev) * torch.sign(x)).contiguous()
+
+    # ragged, multi-block: a stacked leaf's 3 layers, then 2 single leaves
+    seg_rows = (2000, 2000, 2000, 191, 7)
+    x = (torch.randn((sum(seg_rows), 1024), generator=g) * 0.2).to(dev)
+    col = torch.empty((x.shape[0], 1), device=dev)
+    r0 = 0
+    for i, n in enumerate(seg_rows):
+        col[r0:r0 + n] = x[r0:r0 + n].abs().max() * (0.6 + 0.1 * i)
+        x[r0 + n - 1, 600:] = 0.0
+        r0 += n
+    _b7_case("ragged", x, col, signed_like(x), worst, False)
+    for reduced in (True, False):
+        cfg = configs.get(LM_ARCH)
+        cfg = configs.reduced(cfg) if reduced else cfg
+        params = registry.get_model(cfg).init(0, device=dev)
+        spec = plane.make_plane_spec(params)
+        x2, alphas = plane.pack_tiles(params, spec)
+        col = plane.alpha_column(alphas, spec)
+        del params
+        torch.cuda.empty_cache()
+        label = "reduced" if reduced else "full"
+        if not reduced:
+            whole = all(sz == r * 1024 for sz, r in zip(spec.seg_sizes, spec.seg_rows))
+            check(spec.n_rows == FULL_PLANE_ROWS and whole,
+                  f"full plane: {spec.n_rows} rows, whole rows a segment: {whole}")
+            print(f"[trainer-kernels] full-width plane {tuple(x2.shape)} in {spec.n_seg} "
+                  f"segments of whole rows ({len(spec.q_slots)} leaves)")
+        timings[label] = _b7_case(label, x2, col, signed_like(x2), worst, not reduced)
+        del x2, col
+        torch.cuda.empty_cache()
+
+    # B9 through its kernel, against B5 and the row max
+    key = torch.tensor([0x9E3779B9, 0x7F4A7C15], dtype=torch.int64).to(torch.uint32).to(dev)
+    b9_timings = {}
+    for label, shape in (("main", (135, 1024)), ("large", LARGE)):
+        x = (torch.randn(shape, generator=g) * 0.2).to(dev)
+        c = x.abs().amax(dim=1, keepdim=True) * 0.9
+        for a2 in (c, c.expand(shape).contiguous()):
+            for k2 in (None, key):
+                q, mx = K.fake_quant_amax_tiles(x, a2, k2)
+                bad, err = mismatches(q, R.fake_quant_amax_tiles(x, a2, k2)[0])
+                worst["fake_quant_amax_tiles"] = max(worst["fake_quant_amax_tiles"], err)
+                check(bad == 0 and torch.equal(q, K.fake_quant_tiles(x, a2, k2)),
+                      f"fake_quant_amax_tiles {label} a{tuple(a2.shape)}: values != B5")
+                check(torch.equal(mx, torch.amax(x.abs(), 1, keepdim=True)),
+                      f"fake_quant_amax_tiles {label}: rowmax != torch.amax")
+        n, rows = x.numel(), shape[0]
+        b_ms, b_by = bound(8 * n + 8 * rows + 8, 40 * n)
+        b9_timings[label] = dict(ms=time_ms(lambda: K.fake_quant_amax_tiles(x, c, key)),
+                                 plain_ms=time_ms(lambda: R.fake_quant_amax_tiles(x, c, key),
+                                                  reps=5, iters=10),
+                                 bound_ms=b_ms, bound_by=b_by, shape=list(shape))
+        t = b9_timings[label]
+        print(f"[trainer-kernels] B9 {label} {shape}: det and rand, alpha column and per "
+              f"element: bitwise against B5, row max == torch.amax; kernel {t['ms']:.5f} ms "
+              f"twin {t['plain_ms']:.5f} ms bound {b_ms:.6f} ms ({b_by})")
+    timings["fake_quant_amax_tiles"] = b9_timings
+
+    # bf16 B1/B2 at the trainer's activation shapes
+    bf16 = {}
+    for shape in ((8, 128, 2048), (8, 128, 5632), (8, 16, 2048)):
+        x = (torch.randn(shape, generator=g) * 1.5).to(dev).to(torch.bfloat16)
+        gr = signed_like(x.float()).to(torch.bfloat16)
+        for a in (torch.tensor(4.0, device=dev), torch.tensor(2.7, device=dev)):
+            check(torch.equal(K.quant_det(x, a), R.quant_det(x, a)),
+                  f"quant_det bf16 {shape}: differs from its twin")
+            gx, ga = K.quant_det_bwd(x, a, gr)
+            rgx, rga = R.quant_det_bwd(x, a, gr)
+            rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
+            check(torch.equal(gx, rgx) and gx.dtype == torch.bfloat16,
+                  f"quant_det_bwd bf16 gx {shape}")
+            check(rel <= GA_RTOL, f"quant_det_bwd bf16 g_alpha {shape}: rel err {rel:.3g}")
+        n = x.numel()
+        a = torch.tensor(4.0, device=dev)
+        bf16[str(shape)] = {
+            "quant_det": dict(ms=time_ms(lambda: K.quant_det(x, a)),
+                              plain_ms=time_ms(lambda: R.quant_det(x, a), reps=5, iters=10),
+                              bound_ms=bound(4 * n + 4, 12 * n)[0]),
+            "quant_det_bwd": dict(ms=time_ms(lambda: K.quant_det_bwd(x, a, gr)),
+                                  plain_ms=time_ms(lambda: R.quant_det_bwd(x, a, gr),
+                                                   reps=5, iters=10),
+                                  bound_ms=bound(6 * n + 8, 20 * n)[0])}
+        t = bf16[str(shape)]
+        print(f"[trainer-kernels] bf16 quant_det/bwd {shape}: bitwise, g_alpha within GA_RTOL; "
+              f"kernel {t['quant_det']['ms']:.5f} / {t['quant_det_bwd']['ms']:.5f} ms, twin "
+              f"{t['quant_det']['plain_ms']:.5f} / {t['quant_det_bwd']['plain_ms']:.5f} ms, "
+              f"bound {t['quant_det']['bound_ms']:.6f} / {t['quant_det_bwd']['bound_ms']:.6f} ms")
+    timings["bf16"] = bf16
+    print(f"[trainer-kernels] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"worst": worst, "timings": timings}
+
+
+def b9_path_phase(dev) -> dict:
+    """B9's only caller, ``dispatch.fake_quant_amax_plane`` (the reference
+    calls it from nowhere), forward and backward on LeNet's real plane with
+    the counters zeroed just before and read just after: one launch, the
+    values B5's, the backward B5's STE."""
+    from repro_torch.bench import common
+    from repro_torch.core import plane
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import fp8_quant as K
+
+    params, _ = common.make_model(common.TASKS["cifar10-lenet"], 0, dev)
+    spec = plane.make_plane_spec(params)
+    w2, alphas = plane.pack_tiles(params, spec)
+    col = plane.alpha_column(alphas, spec)
+    key = torch.tensor([5, 6], dtype=torch.int64).to(torch.uint32).to(dev)
+    g = torch.randn(w2.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    grads = []
+    K.reset_launches()
+    for fn in ("fake_quant_amax_plane", "fake_quant_plane"):
+        x = w2.clone().requires_grad_()
+        a = col.clone().requires_grad_()
+        out = getattr(dispatch, fn)(x, a, key)
+        q = out[0] if isinstance(out, tuple) else out
+        (q * g).sum().backward()
+        grads.append((q.detach(), x.grad, a.grad))
+        if fn == "fake_quant_amax_plane":
+            synchronize()
+            launches = dict(K.LAUNCHES)
+    for got, want in zip(grads[0], grads[1]):
+        check(torch.equal(got, want), "fake_quant_amax_plane: value or gradient != B5's")
+    check(launches["fake_quant_amax_tiles"] == 1 and launches["fake_quant_tiles"] == 0,
+          f"fake_quant_amax_plane launches {launches}")
+    print(f"[b9] dispatch.fake_quant_amax_plane on LeNet's plane {tuple(w2.shape)}: 1 launch, "
+          f"values and STE gradients equal to fake_quant_plane's (B5)")
+    return {"launches": launches}
+
+
+def _train_step_grads(model, p, batch, qcfg, opt_level, accum, where, per_leaf=False):
+    """One train step from ``p`` on ``where`` with an optimizer that hands
+    back the step's gradient as its state: ``(loss, {name: grad},
+    launches)``. ``per_leaf``: the weight tree is quantized by
+    ``quantize_params_once_per_leaf`` (the plain chain, autograd) in place
+    of the plane."""
+    from repro_torch import tree
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.launch import steps
+    from repro_torch.optim.base import Optimizer
+
+    grads_as_state = Optimizer(init=lambda p: (), update=lambda gr, s, p, t: (
+        tree.tree_map(torch.zeros_like, p), gr))
+    plane_once = steps.quantize_params_once
+    if per_leaf:
+        steps.quantize_params_once = lambda params, q, spec=None: \
+            steps.quantize_params_once_per_leaf(params, q)
+    try:
+        step = steps.make_train_step(model, grads_as_state, qcfg, accum=accum,
+                                     opt_level=opt_level)
+        K.reset_launches()
+        _, gr, m = step(tree.tree_map(lambda t: t.to(where), p), (),
+                        {k: torch.from_numpy(v).to(where) for k, v in batch.items()}, 0)
+        synchronize()
+    finally:
+        steps.quantize_params_once = plane_once
+    return float(m["loss"]), dict(tree.flatten(gr)), dict(K.LAUNCHES)
+
+
+def trainer_card_vs_cpu_phase(dev) -> None:
+    """Reduced-TinyLlama train steps, each one step from the same weights
+    and tokens; the optimizer hands back the step's gradient as its state,
+    so the gradients themselves are compared.
+
+    As shipped (bf16, QAT on), card against the CPU twins, at opt_level 1
+    (accum 1), 0 and 2 (accum 2), at the bars of the CPU parity tests
+    against the reference (``tests/test_torch_train.py``, the FP8
+    activation-tie mechanism): loss within 2e-3, each weight, norm and
+    embedding gradient within 0.25 of its magnitude sum, each clip gradient
+    within 0.25 of the largest. B7 launches once forward and once backward a
+    step at opt_level >= 1, B10/B11 at every projection at opt_level 0.
+
+    Tie-free, at opt_level 1 (accum 1) and 2 (accum 2): weight-only QAT in
+    f32 (activations unquantized, the models' compute dtype f32) on the
+    card, the plane step (B7) against the same step with the weight tree
+    quantized leaf by leaf by the plain chain under autograd, at the bars of
+    ``tests/test_torch_plane_quant.py::test_quantize_params_once_matches_the_per_leaf_loop``,
+    with its clips nudged off ``|w| == alpha`` as there: the same quantized weights, so the loss is bitwise equal; each weight
+    gradient within 1e-6 of itself element by element (the chain
+    multiplies by ``s`` and divides by it again); each weight clip within
+    1e-4 of itself (the plane sums rows, then segments); activation clips
+    zero. Card against CPU is not tie-free even so: the two devices' log2
+    and exp2 differ in the last bit, so a segment's grid scale may differ
+    by an ulp and a weight near a rounding boundary takes the neighbouring
+    grid point; the phase counts both on the reduced plane and prints the
+    card-vs-CPU gaps of the f32 step beside them."""
+    from repro_torch import configs, tree
+    from repro_torch.core import plane
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.data import LMBatcher, silo_stream
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.kernels import ref as R
+    from repro_torch.launch import steps
+    from repro_torch.models import common, registry, transformer
+
+    cfg = configs.reduced(configs.get(LM_ARCH))
+    model = registry.get_model(cfg)
+    p_cpu = model.init(0, device="cpu")
+    batch = LMBatcher(silo_stream(cfg.vocab, 4 * 65 * 64, 0, 0), 4, 64)(0)
+    sites = 7 * cfg.n_layers + cfg.ce_chunks
+    clips = lambda g: {n for n in g if n.endswith(("_qa", "_qb"))}
+
+    for opt_level, accum in ((1, 1), (0, 2), (2, 2)):
+        tag = f"as shipped opt_level {opt_level} accum {accum}"
+        l_c, g_c, _ = _train_step_grads(model, p_cpu, batch, QATConfig(), opt_level, accum,
+                                        "cpu")
+        l_g, g_g, launches = _train_step_grads(model, p_cpu, batch, QATConfig(), opt_level,
+                                               accum, dev)
+        if opt_level >= 1:
+            check(launches["quant_det_tiles"] == launches["quant_det_tiles_bwd"] == 1
+                  and launches["quant_det"] == accum * sites
+                  and all(launches[k] == 0 for k in QAT_MATMUL),
+                  f"trainer step {tag}: launches {launches}")
+        else:
+            check(launches["quant_det_tiles"] == 0
+                  and all(launches[k] == accum * sites for k in QAT_MATMUL),
+                  f"trainer step {tag}: launches {launches}")
+        clip_scale = max(float(g_c[n].abs().max()) for n in clips(g_c))
+        worst_w = worst_c = 0.0
+        for name, r in g_c.items():
+            r, d = r.double(), (g_g[name].cpu().double() - r.double()).abs()
+            if name in clips(g_c):
+                worst_c = max(worst_c, float(d.max()) / clip_scale)
+            else:
+                worst_w = max(worst_w, float(d.sum()) / max(float(r.abs().sum()), 1e-30))
+        print(f"[trainer-step] reduced tinyllama {tag}, card vs CPU twins: loss {l_g:.7f} vs "
+              f"{l_c:.7f}; worst weight-gradient gap {worst_w:.3g} of its magnitude sum, worst "
+              f"clip-gradient gap {worst_c:.3g} of the largest (bars 0.25, 0.25)")
+        check(abs(l_g - l_c) <= 2e-3 * abs(l_c), f"trainer step {tag}: loss {l_g} vs {l_c}")
+        check(worst_w <= 0.25 and worst_c <= 0.25, f"trainer step {tag}: a gradient beyond "
+              "its bar")
+
+    # tie-free: f32, weight-only QAT, plane against the per-leaf chain on the
+    # card; every clip nudged off |w| == alpha, where the chain's autograd
+    # splits the subgradient and the kernels do not (tests/test_plane.py:216)
+    qcfg = QATConfig(quantize_acts=False)
+    flat = tree.flatten(p_cpu)
+    p_cpu = tree.unflatten([n for n, _ in flat], [v * 1.05 if n.endswith(("_qa", "_qb"))
+                                                  else v for n, v in flat])
+    dtypes = [(m, m.COMPUTE_DTYPE) for m in (common, transformer, steps)]
+    for m, _ in dtypes:
+        m.COMPUTE_DTYPE = torch.float32
+    try:
+        for opt_level, accum in ((1, 1), (2, 2)):
+            tag = f"f32 weight-only opt_level {opt_level} accum {accum}"
+            l_p, g_p, launches = _train_step_grads(model, p_cpu, batch, qcfg, opt_level,
+                                                   accum, dev)
+            l_l, g_l, leaf_launches = _train_step_grads(model, p_cpu, batch, qcfg, opt_level,
+                                                        accum, dev, per_leaf=True)
+            check(launches["quant_det_tiles"] == launches["quant_det_tiles_bwd"] == 1
+                  and leaf_launches["quant_det_tiles"] == 0 and launches["quant_det"] == 0,
+                  f"trainer step {tag}: launches {launches} / {leaf_launches}")
+            check(l_p == l_l, f"trainer step {tag}: plane loss {l_p} != per-leaf {l_l}")
+            worst_w = worst_c = 0.0
+            for name, r in g_l.items():
+                r, t = r.double(), g_p[name].double()
+                if name.endswith("_qb"):
+                    check(not r.any() and not t.any(), f"{tag}: {name} not zero")
+                    continue
+                rel = float(((t - r).abs() / r.abs()).nan_to_num(0.0).max()) if r.any() else \
+                    float(t.abs().max())
+                if name.endswith("_qa"):
+                    check(bool(r.any()), f"{tag}: {name} zero")
+                    worst_c = max(worst_c, rel)
+                else:
+                    worst_w = max(worst_w, rel)
+            print(f"[trainer-step] reduced tinyllama {tag}, on the card, plane (B7) vs per-leaf "
+                  f"chain: loss {l_p:.7f} == {l_l:.7f}; worst weight gradient {worst_w:.3g} of "
+                  f"itself, worst weight clip {worst_c:.3g} of itself (bars 1e-6, 1e-4)")
+            check(worst_w <= 1e-6 and worst_c <= 1e-4,
+                  f"trainer step {tag}: plane vs per-leaf beyond the bars")
+        # card against CPU: the weight codes the two devices' quantizers set apart
+        spec = plane.make_plane_spec(p_cpu)
+        x2, alphas = plane.pack_tiles(p_cpu, spec)
+        col = plane.alpha_column(alphas, spec)
+        q_g, q_c = K.quant_det_tiles(x2.to(dev), col.to(dev)).cpu(), R.quant_det_tiles(x2, col)
+        d = (q_g - q_c).abs()
+        last_bits = int(((d > 0) & (d <= 1e-5 * q_c.abs())).sum())
+        flips = int((d > 1e-5 * q_c.abs()).sum())
+        l_c, g_c, _ = _train_step_grads(model, p_cpu, batch, qcfg, 1, 1, "cpu")
+        l_g, g_g, _ = _train_step_grads(model, p_cpu, batch, qcfg, 1, 1, dev)
+    finally:
+        for m, d in dtypes:
+            m.COMPUTE_DTYPE = d
+    worst_w = max(float((g_g[n].cpu().double() - r.double()).abs().sum())
+                  / max(float(r.double().abs().sum()), 1e-30)
+                  for n, r in g_c.items() if n not in clips(g_c))
+    print(f"[trainer-step] reduced tinyllama f32 weight-only opt_level 1, card vs CPU: "
+          f"of {x2.numel()} quantized weights, {last_bits} differ between the card's B7 and "
+          f"the CPU twin in the last bits (the grid scale from log2/exp2) and {flips} sit on "
+          f"another grid point; loss {l_g:.7f} vs {l_c:.7f}, worst weight-gradient gap "
+          f"{worst_w:.3g} of its magnitude sum")
+
+
+def trainer_main_path_phase(dev) -> dict:
+    """``repro_torch.launch.train`` at the reference's defaults (full-width
+    TinyLlama-1.1B, AdamW 3e-4, batch 8 x 128 tokens, det E4M3 QAT,
+    opt_level 1) for TRAIN_STEPS steps, the counters zeroed just before and
+    read just after: exactly one B7 forward and one backward a step, B1/B2
+    (bf16) at every activation site, no B10/B11, every loss finite; step
+    TRAIN_PROFILED runs under ``torch.profiler``. Then TRAIN_OPT0_STEPS
+    steps at opt_level 0 show the reverse: B10/B11 at every projection, no
+    B7."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.launch import train
+
+    cfg = configs.get(LM_ARCH)
+    sites = 7 * cfg.n_layers + cfg.ce_chunks    # aq sites a microbatch: 7 a layer, the head a chunk
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    wrap = lambda i: prof if i == TRAIN_PROFILED else contextlib.nullcontext()
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    out = train.run(steps=TRAIN_STEPS, device=dev, wrap_step=wrap,
+                    log=lambda s: print(s if s.startswith("[") else f"[train] {s}"))
+    synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check(launches["quant_det_tiles"] == launches["quant_det_tiles_bwd"] == TRAIN_STEPS,
+          f"B7 launched {launches['quant_det_tiles']} / {launches['quant_det_tiles_bwd']} "
+          f"times in {TRAIN_STEPS} steps")
+    check(launches["quant_det"] == launches["quant_det_bwd"] == TRAIN_STEPS * sites,
+          f"B1/B2 launched {launches['quant_det']} / {launches['quant_det_bwd']} times")
+    check(all(launches[k] == 0 for k in QAT_MATMUL), f"B10/B11 launched: {launches}")
+    check(all(math.isfinite(v) for v in out["losses"]), f"loss {out['losses']}")
+    steady = [t for i, t in enumerate(out["step_s"]) if i not in (0, TRAIN_PROFILED)]
+    s_step = statistics.mean(steady)
+    peak = out["peak_mem_bytes"]
+    print(f"[train] full tinyllama, {TRAIN_STEPS} steps at opt_level 1 in {wall:.1f} s "
+          f"(init included): {s_step:.4f} s/step (mean of steps 2-{TRAIN_STEPS} without the "
+          f"profiled one; min {min(steady):.4f}, max {max(steady):.4f}), "
+          f"{out['tokens_per_step'] / s_step:.1f} tokens/s, first step {out['step_s'][0]:.3f} s, "
+          f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, peak device memory {peak} B "
+          f"({peak / 2 ** 30:.2f} GiB), launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    stats = _profile_kernels(prof, out["step_s"][TRAIN_PROFILED] * 1e6, s_step,
+                             f"train step {TRAIN_PROFILED + 1}", TRAINER_INSTANCES)
+    del prof
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    out0 = train.run(steps=TRAIN_OPT0_STEPS, device=dev, opt_level=0,
+                     log=lambda s: print(s if s.startswith("[") else f"[train opt0] {s}"))
+    synchronize()
+    l0 = dict(K.LAUNCHES)
+    check(l0["quant_det_tiles"] == l0["quant_det_tiles_bwd"] == 0, f"opt_level 0: B7 {l0}")
+    check(all(l0[k] == TRAIN_OPT0_STEPS * sites for k in QAT_MATMUL),
+          f"opt_level 0: B10/B11 launches {l0}")
+    check(all(math.isfinite(v) for v in out0["losses"]), f"opt_level 0 loss {out0['losses']}")
+    print(f"[train opt0] {TRAIN_OPT0_STEPS} steps at opt_level 0: "
+          f"{[round(t, 3) for t in out0['step_s']]} s/step, loss {out0['losses']}, launches "
+          f"{ {k: v for k, v in l0.items() if v} }")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "s_per_step": s_step, "peak_mem_bytes": peak,
+            "losses": out["losses"], **stats}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1400,16 +1888,27 @@ def main() -> int:
     kern["timings"].update(rans_kern["timings"])
     lm_kern = lm_kernel_phase(dev)
     kern["worst"].update(lm_kern["worst"])
+    trainer_kern = trainer_kernel_phase(dev)
+    kern["worst"].update(trainer_kern["worst"])
     round_phase(dev)
     lm_card_vs_cpu_phase(dev)
+    trainer_card_vs_cpu_phase(dev)
+    b9 = b9_path_phase(dev)
     main_path_phase(dev, "uq")
     uqp = main_path_phase(dev, "uq+")
     lm = lm_main_path_phase(dev)
     torch.cuda.empty_cache()
+    trainer = trainer_main_path_phase(dev)
     fmt = format_phase(dev)
     grid = grid_phase(dev)
 
     def path(name: str) -> tuple[str, int]:
+        if name in TRAIN_KERNELS:
+            return (f"launch.train full-width {LM_ARCH}, {TRAIN_STEPS} steps at opt_level 1",
+                    trainer["launches"][name])
+        if name == "fake_quant_amax_tiles":
+            return "dispatch.fake_quant_amax_plane on the cifar10-lenet plane", \
+                b9["launches"][name]
         if name in QAT_MATMUL:
             return (f"fed_lm full-width {LM_ARCH}, {LM_ROUNDS} rounds", lm["launches"][name])
         if name in FORMAT_KERNELS:
@@ -1439,8 +1938,27 @@ def main() -> int:
                 "shapes": list(lm_kern["timings"][name].values()),
             })
             continue
+        if name in TRAIN_KERNELS or name == "fake_quant_amax_tiles":
+            tt = trainer_kern["timings"]
+            t = tt["full"][name] if name in TRAIN_KERNELS else tt[name]["main"]
+            extra = ({"device_us": trainer["device_us"].get(name)} if name in TRAIN_KERNELS
+                     else {"large": tt[name]["large"]})
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+                "path": label, "max_abs_err": kern["worst"][name],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+                "library_ms": None, **extra,
+            })
+            continue
         t = kern["timings"][name]["main"]
         extra = {}
+        if name in ("quant_det", "quant_det_bwd"):
+            extra = {"bf16": {shp: v[name] for shp, v in
+                              trainer_kern["timings"]["bf16"].items()},
+                     "trainer_launches": trainer["launches"][name],
+                     "trainer_device_us": trainer["device_us"].get(name)}
         if name in FORMAT_KERNELS:
             extra = {"mlp": kern["timings"][name]["mlp"], "device_us": fmt["device_us"][
                 PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}

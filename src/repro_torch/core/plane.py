@@ -8,7 +8,10 @@ segment is zero-padded to a whole number of ``LANE``-wide rows, so every row
 belongs to exactly one clipping value and the kernels take alpha as a
 ``(n_rows, 1)`` per-row column (``alpha_column``). The UQ+ server optimizer
 (``core.server_opt``) runs on this layout: one ``fake_quant_tiles`` launch
-per gradient-descent step or grid point covers the whole tree.
+per gradient-descent step or grid point covers the whole tree. So does the
+trainer's once-a-step weight fake-quant (:func:`quantize_det`, called by
+``launch.steps.quantize_params_once``): one B7 launch forward and one
+backward for the whole tree.
 
 Quantized leaves are visited in sorted dotted-name order, the order of the
 reference's ``sorted(quantized_leaf_names(...))`` and of the port's wire.
@@ -23,6 +26,7 @@ import torch
 from . import fp8, qat
 from .. import tree
 from ..kernels.ref import LANE
+from .fp8 import E4M3, FP8Format
 
 
 def f32(x: torch.Tensor) -> torch.Tensor:
@@ -72,9 +76,15 @@ class PlaneSpec:
     n_rows: int                        # total rows of the (n_rows, LANE) plane
     n_seg: int                         # total segments == total alpha scalars
     row_seg: tuple[int, ...]           # (n_rows,): row -> segment id
+    _ids: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def row_seg_ids(self, device) -> torch.Tensor:
-        return torch.tensor(self.row_seg, dtype=torch.int64, device=device)
+        """``row_seg`` as an int64 tensor on ``device``, made once per device
+        (at full-width TinyLlama-1.1B it has 1,074,176 entries)."""
+        key = str(torch.device(device))
+        if key not in self._ids:
+            self._ids[key] = torch.tensor(self.row_seg, dtype=torch.int64, device=device)
+        return self._ids[key]
 
 
 def make_plane_spec(params: dict) -> PlaneSpec:
@@ -120,18 +130,25 @@ def make_plane_spec(params: dict) -> PlaneSpec:
     )
 
 
+def _segments(spec: PlaneSpec, qi: int, t: torch.Tensor) -> list[torch.Tensor]:
+    """Quantized leaf ``qi`` (or its cotangent) cut into its segments, flat."""
+    f = t.reshape(-1)
+    per = spec.seg_sizes[spec.leaf_seg0[qi]]
+    return [f[l * per:(l + 1) * per] for l in range(spec.leaf_segs[qi])]
+
+
+def _pack(ws: list[torch.Tensor], als: list[torch.Tensor], spec: PlaneSpec):
+    pieces = [p for qi, w in enumerate(ws) for p in _segments(spec, qi, f32(w))]
+    alphas = torch.cat([f32(a).reshape(-1) for a in als])
+    return tiles(pieces, 0.0), torch.clamp(alphas, min=fp8._ALPHA_FLOOR)
+
+
 def pack_tiles(params: dict, spec: PlaneSpec) -> tuple[torch.Tensor, torch.Tensor]:
     """Params -> ``(x2 (n_rows, LANE) f32, alphas (n_seg,) f32)``; alphas
     floored at ``fp8._ALPHA_FLOOR`` as every quantizer does."""
     leaves = tree.leaves(params)
-    pieces = []
-    for qi, slot in enumerate(spec.q_slots):
-        f = f32(leaves[slot]).reshape(-1)
-        per = spec.seg_sizes[spec.leaf_seg0[qi]]
-        pieces.extend(f[l * per:(l + 1) * per] for l in range(spec.leaf_segs[qi]))
-    x2 = tiles(pieces, 0.0)
-    alphas = torch.cat([f32(leaves[s]).reshape(-1) for s in spec.alpha_slots])
-    return x2, torch.clamp(alphas, min=fp8._ALPHA_FLOOR)
+    return _pack([leaves[s] for s in spec.q_slots], [leaves[s] for s in spec.alpha_slots],
+                 spec)
 
 
 def alpha_column(alphas: torch.Tensor, spec: PlaneSpec,
@@ -151,3 +168,122 @@ def leaf_from_tiles(vals2: torch.Tensor, spec: PlaneSpec, qi: int) -> torch.Tens
              .reshape(-1)[:spec.seg_sizes[si]]
              for si in range(seg0, seg0 + spec.leaf_segs[qi])]
     return torch.cat(slabs).reshape(spec.q_shapes[qi])
+
+
+def _leaf_rows(vals2: torch.Tensor, spec: PlaneSpec, qi: int) -> torch.Tensor:
+    """Leaf ``qi`` out of a plane buffer, a view where its segments fill
+    whole rows (every TinyLlama leaf does), else a copy."""
+    seg0, n = spec.leaf_seg0[qi], spec.leaf_segs[qi]
+    r0, rows, size = spec.seg_row0[seg0], spec.seg_rows[seg0], spec.seg_sizes[seg0]
+    if n == 1 or size == rows * LANE:
+        return vals2[r0:r0 + n * rows].reshape(-1)[:n * size].view(spec.q_shapes[qi])
+    return leaf_from_tiles(vals2, spec, qi)
+
+
+def segment_sum(col: torch.Tensor, spec: PlaneSpec) -> torch.Tensor:
+    """``(n_rows, 1)`` per-row values -> ``(n_seg,)`` per-segment sums, the
+    transpose of :func:`alpha_column`. Each segment's rows are contiguous and
+    a stacked leaf's segments have equal rows, so this is one fixed-order
+    ``torch.sum`` per leaf: the same bits on every run (a scatter-add,
+    ``alphas[seg_ids]``'s autograd transpose, uses atomics on the card)."""
+    sums = []
+    for qi in range(len(spec.q_slots)):
+        seg0, n = spec.leaf_seg0[qi], spec.leaf_segs[qi]
+        r0, rows = spec.seg_row0[seg0], spec.seg_rows[seg0]
+        sums.append(col[r0:r0 + n * rows].reshape(n, rows).sum(dim=1))
+    return torch.cat(sums)
+
+
+class _PlaneIn(torch.autograd.Function):
+    """:func:`pack_tiles` and :func:`alpha_column` as one op: the quantized
+    leaves and their clips -> ``(x2, a_col)``. Its backward hands each leaf
+    its rows of the plane cotangent (views, no copy) and each clip the
+    :func:`segment_sum` of the column cotangent, where the floor passed it.
+    Autograd through slices and a gather would instead allocate a
+    plane-sized cotangent per leaf and scatter-add with atomics."""
+
+    @staticmethod
+    def forward(ctx, spec, seg_ids, *ts):
+        n = len(spec.q_slots)
+        x2, alphas = _pack(list(ts[:n]), list(ts[n:]), spec)
+        ctx.spec = spec
+        ctx.shapes = [(t.shape, t.dtype) for t in ts]
+        ctx.save_for_backward(alphas)
+        return x2, alphas[seg_ids][:, None]
+
+    @staticmethod
+    def backward(ctx, g_x2, g_col):
+        spec = ctx.spec
+        n = len(spec.q_slots)
+        (alphas,) = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        g_w = [_leaf_rows(g_x2, spec, qi).to(ctx.shapes[qi][1]) if need[qi] else None
+               for qi in range(n)]
+        g_a = [None] * n
+        if any(need[n:]):
+            ga = segment_sum(g_col, spec) * (alphas > fp8._ALPHA_FLOOR).to(torch.float32)
+            i = 0
+            for k, (shape, dtype) in enumerate(ctx.shapes[n:]):
+                m = nelem(tuple(shape))
+                g_a[k] = ga[i:i + m].reshape(shape).to(dtype)
+                i += m
+        return (None, None, *g_w, *g_a)
+
+
+class _PlaneOut(torch.autograd.Function):
+    """The quantized plane -> each quantized leaf in its output dtype. Its
+    backward lays the leaves' cotangents into one f32 plane (one copy each;
+    zeros in the padding and for a leaf with no cotangent)."""
+
+    @staticmethod
+    def forward(ctx, spec, dtypes, q2):
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)
+        return tuple(_leaf_rows(q2, spec, qi).to(dt, copy=True)
+                     for qi, dt in enumerate(dtypes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        spec = ctx.spec
+        ref = next(g for g in gs if g is not None)
+        g2 = torch.zeros((spec.n_rows, LANE), dtype=torch.float32, device=ref.device)
+        flat = g2.view(-1)
+        for qi, g in enumerate(gs):
+            if g is None:
+                continue
+            for si, piece in enumerate(_segments(spec, qi, g), start=spec.leaf_seg0[qi]):
+                r0 = spec.seg_row0[si] * LANE
+                flat[r0:r0 + piece.numel()].copy_(piece)
+        return None, None, g2
+
+
+def quantize_det(params: dict, fmt: FP8Format = E4M3, spec: PlaneSpec | None = None,
+                 out_dtype: torch.dtype | None = None) -> dict:
+    """Fake-quantize every quantized weight leaf in one B7 launch, the port
+    of ``repro.core.plane.quantize_det``.
+
+    Values and STE gradients of the per-leaf ``fp8.quantize_det`` loop: the
+    clip mask to each weight, the clip routing plus the ``(q - y) * s /
+    alpha`` scale term summed back to each leaf's scalar (or stacked
+    per-layer) alpha, with no LSQ gradient scale (the reference's plane path
+    applies none). Forward and backward are one launch each, whatever the
+    number of tensors. ``out_dtype`` (the compute dtype, for the trainer's
+    pre-quantization) applies to the quantized leaves only; every other
+    leaf passes through untouched. ``spec`` built once by the caller saves
+    rebuilding it, and its device row ids, on every call.
+    """
+    from ..kernels import dispatch  # kernels imports core modules
+
+    if spec is None:
+        spec = make_plane_spec(params)
+    if not spec.q_slots:
+        return params
+    leaves = tree.leaves(params)
+    ws = [leaves[s] for s in spec.q_slots]
+    x2, a_col = _PlaneIn.apply(spec, spec.row_seg_ids(ws[0].device), *ws,
+                               *(leaves[s] for s in spec.alpha_slots))
+    q2 = dispatch.quant_det_plane(x2, a_col, fmt)
+    outs = _PlaneOut.apply(spec, tuple(out_dtype or w.dtype for w in ws), q2)
+    for slot, q in zip(spec.q_slots, outs):
+        leaves[slot] = q
+    return tree.unflatten(list(spec.names), leaves)

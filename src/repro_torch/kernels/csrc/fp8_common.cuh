@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fp8 {
@@ -45,6 +46,33 @@ __device__ __forceinline__ float exponent(float xc, float b) {
 // s = 2^(p - b - m)
 __device__ __forceinline__ float scale(float p, float b, const Fmt& f) {
   return exp2f((p - b) - (float)f.mant);
+}
+
+// Q_det of one element at clip a (bias b): s * round(clip(x) / s). B1
+// (quant_det.cu) and B7 (quant_det_tiles.cu) both call it, so a plane
+// element equals a per-tensor element at the same (x, a).
+__device__ __forceinline__ float quant_det_elem(float x, float a, float b,
+                                                const Fmt& f) {
+  const float xc = clip(x, a);
+  const float s = scale(exponent(xc, b), b, f);
+  return s * rintf(xc / s);
+}
+
+// I/O in f32 or bf16, arithmetic in f32: a bf16 activation is widened
+// exactly on load and its result rounded to nearest even on store, as the
+// reference kernels' astype(f32) / astype(o_ref.dtype) and torch's .to()
+// do.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // The straight-through backward of Q_det at one element x with clip a (bias

@@ -7,15 +7,20 @@
 //   gx      = g * 1{|x| <= a}
 //   g_alpha = sum g * (sign(x) * 1{|x| > a} + (q - y) * s / a)
 //
-// Bound: memory. Per element it reads x and g (8 bytes) and writes gx (4
-// bytes). g_alpha takes the deterministic two-pass reduction of reduce.cuh:
-// pass 1 writes one partial sum per block, pass 2 folds them in one block.
+// Two instances, as the forward: x, g and gx all f32, or all bf16 (read as
+// f32, gx rounded back to bf16; g_alpha is f32 either way).
+//
+// Bound: memory. Per element it reads x and g (8 bytes, 4 in bf16) and
+// writes gx (4 bytes, 2 in bf16). g_alpha takes the deterministic two-pass
+// reduction of reduce.cuh: pass 1 writes one partial sum per block, pass 2
+// folds them in one block.
 #include "reduce.cuh"
 
-__global__ void quant_det_bwd_kernel(const float* __restrict__ x,
+template <typename T>
+__global__ void quant_det_bwd_kernel(const T* __restrict__ x,
                                      const float* __restrict__ alpha,
-                                     const float* __restrict__ g,
-                                     float* __restrict__ gx,
+                                     const T* __restrict__ g,
+                                     T* __restrict__ gx,
                                      float* __restrict__ partial, long long n,
                                      fp8::Fmt f) {
   __shared__ float sh[fp8::kThreads];
@@ -25,10 +30,10 @@ __global__ void quant_det_bwd_kernel(const float* __restrict__ x,
   float acc = 0.0f;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float gi = g[i];
+    const float gi = fp8::to_f32(g[i]);
     float inside, route;
-    fp8::ste_terms(x[i], a, b, f, &inside, &route);
-    gx[i] = gi * inside;
+    fp8::ste_terms(fp8::to_f32(x[i]), a, b, f, &inside, &route);
+    gx[i] = fp8::from_f32<T>(gi * inside);
     acc += gi * route;
   }
   const float total = fp8::block_sum(acc, sh);
@@ -41,15 +46,24 @@ extern "C" int repro_quant_det_bwd_blocks(long long n) {
   return fp8::bwd_blocks(n);
 }
 
-extern "C" int repro_quant_det_bwd(const float* x, const float* alpha,
-                                   const float* g, float* gx, float* partial,
-                                   float* galpha, long long n, int exp,
-                                   int mant, float mant_const,
+// bf16 != 0: x, g and gx are __nv_bfloat16, else float.
+extern "C" int repro_quant_det_bwd(const void* x, const float* alpha,
+                                   const void* g, void* gx, float* partial,
+                                   float* galpha, long long n, int bf16,
+                                   int exp, int mant, float mant_const,
                                    cudaStream_t stream) {
   const fp8::Fmt f{exp, mant, mant_const};
   const int blocks = repro_quant_det_bwd_blocks(n);
-  quant_det_bwd_kernel<<<blocks, fp8::kThreads, 0, stream>>>(
-      x, alpha, g, gx, partial, n, f);
+  if (bf16) {
+    quant_det_bwd_kernel<__nv_bfloat16><<<blocks, fp8::kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), alpha,
+        static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(gx),
+        partial, n, f);
+  } else {
+    quant_det_bwd_kernel<float><<<blocks, fp8::kThreads, 0, stream>>>(
+        static_cast<const float*>(x), alpha, static_cast<const float*>(g),
+        static_cast<float*>(gx), partial, n, f);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, fp8::kThreads, 0, stream>>>(partial, blocks, galpha);

@@ -12,10 +12,15 @@ the forward is the ``quant_det`` / ``quant_rand`` kernel, the backward the
 estimator in closed form). ``qat_matmul`` is one too: the forward is the B10
 kernel ``Q_det(x; beta) @ Q_det(w; alpha)``, the backward the two B11 kernels
 (dx, then dw), as ``repro/kernels/dispatch.py:206-245`` wires them.
+``quant_det_plane`` (the trainer's once-a-step
+weight fake-quant on the ``core.plane`` plane) is the B7 pair:
+``quant_det_tiles`` forward, ``quant_det_tiles_bwd`` backward with the clip
+cotangent per row, as ``repro/kernels/dispatch.py:404-435`` wires them.
 ``fake_quant_plane`` (the UQ+ server step) runs
-the ``fake_quant_tiles`` kernel forward; its backward is the reference's
+the ``fake_quant_tiles`` kernel forward, and ``fake_quant_amax_plane`` its
+B9 variant with the per-row raw max; their backward is the reference's
 elementwise STE in plain torch, as the reference computes it in jnp outside
-any kernel (``repro/kernels/dispatch.py:457-469``). At an element exactly on the
+any kernel (``repro/kernels/dispatch.py:457-469, 518-529``). At an element exactly on the
 clip boundary (``|x| == alpha``, e.g. the largest weight right after the
 ``alpha = max|w|`` init) the closed form sends the whole gradient to ``x``,
 as the reference's Pallas backward does; the reference's jnp autodiff
@@ -49,7 +54,8 @@ class _QuantDetSTE(torch.autograd.Function):
 
 def quantize_det(x: torch.Tensor, alpha: torch.Tensor,
                  fmt: FP8Format = E4M3) -> torch.Tensor:
-    """Deterministic FP8 fake-quant through the kernel pair.
+    """Deterministic FP8 fake-quant through the kernel pair; ``x`` f32 or
+    bf16 (computed in f32, returned and differentiated in ``x.dtype``).
 
     On the CPU, stacked per-layer clipping values (more than one element)
     and a 0-dim ``x`` take the plain autograd chain of ``core.fp8``, as the
@@ -137,11 +143,49 @@ def qat_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
                                alpha.to(torch.float32), fmt)
 
 
-class _FakeQuantPlaneSTE(torch.autograd.Function):
-    """``fake_quant_tiles`` forward; the paper's STE backward, elementwise
+class _QuantDetPlaneSTE(torch.autograd.Function):
+    """B7: ``quant_det_tiles`` forward, ``quant_det_tiles_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, x2, a_col, fmt):
+        ctx.fmt = fmt
+        ctx.save_for_backward(x2, a_col)
+        return fp8_quant.quant_det_tiles(x2, a_col, fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, a_col = ctx.saved_tensors
+        gx, ga_row = fp8_quant.quant_det_tiles_bwd(x2, a_col, g.contiguous(), ctx.fmt)
+        return gx, ga_row, None
+
+
+def quant_det_plane(x2: torch.Tensor, a_col: torch.Tensor,
+                    fmt: FP8Format = E4M3) -> torch.Tensor:
+    """One-launch Q_det of the ``(R, LANE)`` f32 plane with its per-row
+    ``(R, 1)`` alpha column; one-launch backward ``(gx, ga_row)``, the
+    caller summing ``ga_row`` per segment (``core.plane.quantize_det``)."""
+    return _QuantDetPlaneSTE.apply(x2.contiguous(), a_col, fmt)
+
+
+def _plane_ste_bwd(ctx, g):
+    """The paper's STE backward of a plane quantize-dequantize, elementwise
     from the saved forward output (``(q - y) * s == q_val - clip(x)``, so no
     random bits are replayed): the clip mask to the tiles, clip routing plus
     the scale term summed per row to the ``(R, 1)`` alpha column."""
+    x2, a_col, q = ctx.saved_tensors
+    a = torch.clamp(a_col, min=fp8._ALPHA_FLOOR)
+    inside = (torch.abs(x2) <= a).to(torch.float32)
+    gx = g * inside
+    if not ctx.needs_input_grad[1]:   # UQ+'s Eq. 4 holds alpha fixed
+        return gx, None, None, None
+    xc = fp8.clip(x2, a)
+    ga_row = torch.sum(
+        g * (torch.sign(x2) * (1.0 - inside) + (q - xc) / a), dim=1, keepdim=True)
+    return gx, ga_row, None, None
+
+
+class _FakeQuantPlaneSTE(torch.autograd.Function):
+    """``fake_quant_tiles`` forward; :func:`_plane_ste_bwd` backward."""
 
     @staticmethod
     def forward(ctx, x2, a_col, key2, fmt):
@@ -151,16 +195,7 @@ class _FakeQuantPlaneSTE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x2, a_col, q = ctx.saved_tensors
-        a = torch.clamp(a_col, min=fp8._ALPHA_FLOOR)
-        inside = (torch.abs(x2) <= a).to(torch.float32)
-        gx = g * inside
-        if not ctx.needs_input_grad[1]:   # UQ+'s Eq. 4 holds alpha fixed
-            return gx, None, None, None
-        xc = fp8.clip(x2, a)
-        ga_row = torch.sum(
-            g * (torch.sign(x2) * (1.0 - inside) + (q - xc) / a), dim=1, keepdim=True)
-        return gx, ga_row, None, None
+        return _plane_ste_bwd(ctx, g)
 
 
 def fake_quant_plane(x2: torch.Tensor, a_col: torch.Tensor,
@@ -168,6 +203,30 @@ def fake_quant_plane(x2: torch.Tensor, a_col: torch.Tensor,
     """Differentiable one-launch quantize-dequantize of the ``(R, LANE)``
     plane with a per-row ``(R, 1)`` alpha column (STE gradients)."""
     return _FakeQuantPlaneSTE.apply(x2.contiguous(), a_col, key2, fmt)
+
+
+class _FakeQuantAmaxPlaneSTE(torch.autograd.Function):
+    """B9 ``fake_quant_amax_tiles`` forward ``(q, rowmax)``; the backward is
+    :func:`_plane_ste_bwd` of ``q``, the row max's cotangent ignored (a
+    monitoring byproduct, as the reference's VJP treats it)."""
+
+    @staticmethod
+    def forward(ctx, x2, a_col, key2, fmt):
+        q, rowmax = fp8_quant.fake_quant_amax_tiles(x2, a_col, key2, fmt)
+        ctx.save_for_backward(x2, a_col, q)
+        ctx.mark_non_differentiable(rowmax)
+        return q, rowmax
+
+    @staticmethod
+    def backward(ctx, g, _g_rowmax):
+        return _plane_ste_bwd(ctx, g)
+
+
+def fake_quant_amax_plane(x2: torch.Tensor, a_col: torch.Tensor,
+                          key2: torch.Tensor | None, fmt: FP8Format = E4M3):
+    """:func:`fake_quant_plane` and the per-row raw amax ``(R, 1)`` from one
+    launch: ``(q, rowmax)``, differentiable in ``q`` (the same STE)."""
+    return _FakeQuantAmaxPlaneSTE.apply(x2.contiguous(), a_col, key2, fmt)
 
 
 def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels for the FP8 hot path, their build and wrappers.
 
-The CUDA C++ sources under ``csrc/`` port eleven Pallas kernels of
+The CUDA C++ sources under ``csrc/`` port fourteen Pallas kernels of
 ``repro.kernels.fp8_quant``, each wrapper here named after the Pallas
 kernel it replaces (the rANS pair of ``csrc/rans.cu`` and the fused QAT
 matrix products of ``csrc/qat_matmul.cu`` are built into the same library;
@@ -17,6 +17,9 @@ their wrappers are in ``kernels.rans`` and ``kernels.fp8_matmul``):
 * ``unpack_sub_tiles``          — ``csrc/unpack.cu``
 * ``quant_pack_amax_tiles``     — ``csrc/quant_pack_amax.cu``
 * ``quant_pack_sub_amax_tiles`` — ``csrc/quant_pack_amax.cu``
+* ``fake_quant_amax_tiles``     — ``csrc/fake_quant.cu``
+* ``quant_det_tiles``           — ``csrc/quant_det_tiles.cu``
+* ``quant_det_tiles_bwd``       — ``csrc/quant_det_tiles.cu``
 
 Build: at first use, ``nvcc`` compiles every source for ``sm_90a`` at once
 (one process per source, started together), links one shared library with a
@@ -48,7 +51,7 @@ from ..core.fp8 import E4M3, FP4_E2M1, FP8Format
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("quant_det.cu", "quant_det_bwd.cu", "quant_pack.cu", "unpack.cu",
            "fake_quant.cu", "quant_rand.cu", "quant_pack_sub.cu", "quant_pack_amax.cu",
-           "rans.cu", "qat_matmul.cu")
+           "rans.cu", "qat_matmul.cu", "quant_det_tiles.cu")
 HEADERS = ("fp8_common.cuh", "reduce.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,7 +63,8 @@ LANE = ref.LANE
 KERNELS = ("quant_det", "quant_det_bwd", "quant_pack_tiles", "unpack_tiles",
            "fake_quant_tiles", "quant_rand", "quant_rand_bwd", "quant_pack_sub_tiles",
            "unpack_sub_tiles", "quant_pack_amax_tiles", "quant_pack_sub_amax_tiles",
-           "rans_encode", "rans_decode", "qat_matmul", "qat_matmul_dx", "qat_matmul_dw")
+           "rans_encode", "rans_decode", "qat_matmul", "qat_matmul_dx", "qat_matmul_dw",
+           "quant_det_tiles", "quant_det_tiles_bwd", "fake_quant_amax_tiles")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib: ctypes.CDLL | None = None
@@ -139,12 +143,15 @@ def load() -> ctypes.CDLL:
         p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_float)
         fmt_args = [i32, i32, f32]
-        lib.repro_quant_det.argtypes = [p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_det.argtypes = [p, p, p, i64, i32, *fmt_args, p]
         lib.repro_quant_det_bwd_blocks.argtypes = [i64]
-        lib.repro_quant_det_bwd.argtypes = [p, p, p, p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_det_bwd.argtypes = [p, p, p, p, p, p, i64, i32, *fmt_args, p]
         lib.repro_quant_pack_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
         lib.repro_unpack_tiles.argtypes = [p, p, i32, p, i64, *fmt_args, p]
         lib.repro_fake_quant_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
+        lib.repro_fake_quant_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_det_tiles.argtypes = [p, p, p, i64, *fmt_args, p]
+        lib.repro_quant_det_tiles_bwd.argtypes = [p, p, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_rand.argtypes = [p, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_rand_bwd.argtypes = [p, p, p, p, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_pack_sub_tiles.argtypes = [p, p, i32, p, p, i64, i32, *fmt_args, p]
@@ -166,7 +173,8 @@ def load() -> ctypes.CDLL:
                    lib.repro_quant_pack_amax_tiles, lib.repro_rans_encode,
                    lib.repro_rans_decode, lib.repro_qat_matmul_blocks,
                    lib.repro_qat_matmul, lib.repro_qat_matmul_dx,
-                   lib.repro_qat_matmul_dw):
+                   lib.repro_qat_matmul_dw, lib.repro_fake_quant_amax_tiles,
+                   lib.repro_quant_det_tiles, lib.repro_quant_det_tiles_bwd):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -194,6 +202,25 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_io(t: torch.Tensor, name: str) -> int:
+    """A QAT operand: f32 or bf16, contiguous. Returns the kernels' bf16 flag."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: expected torch.float32 or torch.bfloat16, got {t.dtype}")
+    _check(t, name, t.dtype)
+    return int(t.dtype == torch.bfloat16)
+
+
+def _check_plane(x2: torch.Tensor, a_col: torch.Tensor, name: str = "x2") -> None:
+    """A ``(R, 1024)`` f32 plane (16-byte aligned: the B7 kernels load
+    float4) with its ``(R, 1)`` f32 alpha column."""
+    _check(x2, name, torch.float32)
+    if x2.dim() != 2 or x2.shape[1] != LANE:
+        raise ValueError(f"{name}: plane must be (R, {LANE}), got {tuple(x2.shape)}")
+    if x2.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+    _check(a_col, "alpha column", torch.float32, (x2.shape[0], 1))
 
 
 def _check_alpha_tiles(x2: torch.Tensor, a2: torch.Tensor) -> int:
@@ -236,25 +263,27 @@ def _check_scalar_alpha(alpha: torch.Tensor) -> None:
 
 def quant_det(x: torch.Tensor, alpha: torch.Tensor,
               fmt: FP8Format = E4M3) -> torch.Tensor:
-    """Q_det fake-quant of any-shape f32 ``x`` with a one-element ``alpha``."""
+    """Q_det fake-quant of any-shape f32 or bf16 ``x`` with a one-element
+    f32 ``alpha``: computed in f32, returned in ``x.dtype``."""
     if _on_cpu(x, alpha):
         return ref.quant_det(x, alpha, fmt)
-    _check(x, "x", torch.float32)
+    bf16 = _check_io(x, "x")
     _check_scalar_alpha(alpha)
     out = torch.empty_like(x)
     rc = load().repro_quant_det(x.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-                                x.numel(), *_fmt_args(fmt), _stream())
+                                x.numel(), bf16, *_fmt_args(fmt), _stream())
     _launched(rc, "quant_det")
     return out
 
 
 def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
                   fmt: FP8Format = E4M3):
-    """STE backward of :func:`quant_det`: ``(gx, g_alpha)``, g_alpha 0-dim."""
+    """STE backward of :func:`quant_det`: ``(gx, g_alpha)``; ``g`` and ``gx``
+    in ``x.dtype`` (f32 or bf16), g_alpha 0-dim f32."""
     if _on_cpu(x, alpha, g):
         return ref.quant_det_bwd(x, alpha, g, fmt)
-    _check(x, "x", torch.float32)
-    _check(g, "g", torch.float32, tuple(x.shape))
+    bf16 = _check_io(x, "x")
+    _check(g, "g", x.dtype, tuple(x.shape))
     _check_scalar_alpha(alpha)
     lib = load()
     gx = torch.empty_like(x)
@@ -263,7 +292,7 @@ def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
     ga = torch.empty((), dtype=torch.float32, device=x.device)
     rc = lib.repro_quant_det_bwd(
         x.data_ptr(), alpha.data_ptr(), g.data_ptr(), gx.data_ptr(),
-        partial.data_ptr(), ga.data_ptr(), x.numel(), *_fmt_args(fmt), _stream())
+        partial.data_ptr(), ga.data_ptr(), x.numel(), bf16, *_fmt_args(fmt), _stream())
     _launched(rc, "quant_det_bwd")
     return gx, ga
 
@@ -447,3 +476,57 @@ def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
     if _on_cpu(x2, a2, key2):
         return ref.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)
     return _pack_amax("quant_pack_sub_amax_tiles", k, x2, a2, key2, fmt)
+
+
+def fake_quant_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                          key2: torch.Tensor | None = None,
+                          fmt: FP8Format = E4M3):
+    """:func:`fake_quant_tiles` and, from the same launch, the per-row max|x|
+    of the raw tiles: ``(q (R, 1024) f32, rowmax (R, 1) f32)``."""
+    if _on_cpu(x2, a2, key2):
+        return ref.fake_quant_amax_tiles(x2, a2, key2, fmt)
+    _check(x2, "x2", torch.float32)
+    a_cols = _check_alpha_tiles(x2, a2)
+    if key2 is not None:
+        _check(key2, "key2", torch.uint32, (2,))
+    rows = x2.shape[0]
+    out = torch.empty_like(x2)
+    rowmax = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    rc = load().repro_fake_quant_amax_tiles(
+        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), out.data_ptr(),
+        rowmax.data_ptr(), rows, *_fmt_args(fmt), _stream())
+    _launched(rc, "fake_quant_amax_tiles")
+    return out, rowmax
+
+
+def quant_det_tiles(x2: torch.Tensor, a_col: torch.Tensor,
+                    fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Q_det of the ``(R, 1024)`` f32 parameter plane with its ``(R, 1)``
+    per-row alpha column (floored by the caller): f32 grid values."""
+    if _on_cpu(x2, a_col):
+        return ref.quant_det_tiles(x2, a_col, fmt)
+    _check_plane(x2, a_col)
+    out = torch.empty_like(x2)
+    rc = load().repro_quant_det_tiles(x2.data_ptr(), a_col.data_ptr(), out.data_ptr(),
+                                      x2.shape[0], *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_det_tiles")
+    return out
+
+
+def quant_det_tiles_bwd(x2: torch.Tensor, a_col: torch.Tensor, g2: torch.Tensor,
+                        fmt: FP8Format = E4M3):
+    """STE backward of :func:`quant_det_tiles`: ``(gx (R, 1024), ga_row (R, 1))``,
+    the clip mask to the plane and each row's clip cotangent, summed over
+    the row in a fixed order."""
+    if _on_cpu(x2, a_col, g2):
+        return ref.quant_det_tiles_bwd(x2, a_col, g2, fmt)
+    _check_plane(x2, a_col)
+    _check_plane(g2, a_col, "g2")
+    rows = x2.shape[0]
+    gx = torch.empty_like(x2)
+    ga_row = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    rc = load().repro_quant_det_tiles_bwd(
+        x2.data_ptr(), a_col.data_ptr(), g2.data_ptr(), gx.data_ptr(), ga_row.data_ptr(),
+        rows, *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_det_tiles_bwd")
+    return gx, ga_row

@@ -45,31 +45,40 @@ def _scale_p(xc: torch.Tensor, b: torch.Tensor, fmt: FP8Format,
 
 def quant_det(x: torch.Tensor, alpha: torch.Tensor,
               fmt: FP8Format = E4M3) -> torch.Tensor:
-    """Twin of ``_quant_det_kernel``: Q_det with a per-tensor scalar alpha."""
+    """Twin of ``_quant_det_kernel``: Q_det with a per-tensor scalar alpha.
+    ``x`` is f32 or bf16: read in its own dtype, computed in f32, written
+    back in ``x.dtype``, as the reference kernel does (``out_shape`` x's)."""
     a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
     b = _bias(a, fmt)
-    xc = _clip(x, a)
+    xc = _clip(x.to(torch.float32), a)
     _, s = _scale_p(xc, b, fmt)
-    return s * torch.round(xc / s)
+    return (s * torch.round(xc / s)).to(x.dtype)
 
 
-def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
-                  fmt: FP8Format = E4M3):
-    """Twin of ``_quant_bwd_kernel``: ``(gx, g_alpha)`` of the STE backward.
-
-    ``gx = g * 1{|x| <= a}`` and the scalar
-    ``g_alpha = sum g * (sign(x) * 1{|x| > a} + (q - y) * s / a)``.
-    """
-    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+def _ste(x: torch.Tensor, a: torch.Tensor, g: torch.Tensor, fmt: FP8Format):
+    """The STE backward's elementwise terms, f32 ``x``, ``a`` and ``g``:
+    ``(gx, route)`` with ``gx = g * 1{|x| <= a}`` and the clip cotangent's
+    terms ``g * (sign(x) * 1{|x| > a} + (q - y) * s / a)``."""
     b = _bias(a, fmt)
     inside = (torch.abs(x) <= a).to(torch.float32)
     xc = _clip(x, a)
     _, s = _scale_p(xc, b, fmt)
     y = xc / s
     q = torch.round(y)
-    gx = g * inside
-    ga = torch.sum(g * (torch.sign(x) * (1.0 - inside) + (q - y) * s / a))
-    return gx, ga
+    return g * inside, g * (torch.sign(x) * (1.0 - inside) + (q - y) * s / a)
+
+
+def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
+                  fmt: FP8Format = E4M3):
+    """Twin of ``_quant_bwd_kernel``: ``(gx, g_alpha)`` of the STE backward.
+
+    ``gx = g * 1{|x| <= a}`` in ``x.dtype`` and the f32 scalar
+    ``g_alpha = sum g * (sign(x) * 1{|x| > a} + (q - y) * s / a)``; ``x`` and
+    ``g`` (f32 or bf16) are read as f32, as the reference kernel reads them.
+    """
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    gx, route = _ste(x.to(torch.float32), a, g.to(torch.float32), fmt)
+    return gx.to(x.dtype), torch.sum(route)
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -163,6 +172,38 @@ def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
     values without codes. ``a2`` is ``(R, 1)`` or ``(R, LANE)``."""
     bits = None if key2 is None else tile_counter_bits(tuple(x2.shape), key2)
     return fake_quant_bits(x2, a2, bits, fmt)
+
+
+def fake_quant_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                          key2: torch.Tensor | None = None, fmt: FP8Format = E4M3):
+    """Twin of ``fake_quant_amax_tiles`` (B9): :func:`fake_quant_tiles` and
+    the per-row raw amax ``(R, 1)``."""
+    return fake_quant_tiles(x2, a2, key2, fmt), _rowmax(x2)
+
+
+# ---------------------------------------------------------------------------
+# B7: Q_det on the parameter plane with a per-row alpha column
+# ---------------------------------------------------------------------------
+
+
+def quant_det_tiles(x2: torch.Tensor, a_col: torch.Tensor,
+                    fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``_quant_det_tiles_kernel``: ``(R, LANE)`` f32 plane, ``(R, 1)``
+    alpha column (floored by the caller, ``core.plane``), f32 out; the
+    arithmetic of :func:`quant_det` at each ``(x, a)``."""
+    b = _bias(a_col, fmt)
+    xc = _clip(x2, a_col)
+    _, s = _scale_p(xc, b, fmt)
+    return s * torch.round(xc / s)
+
+
+def quant_det_tiles_bwd(x2: torch.Tensor, a_col: torch.Tensor, g2: torch.Tensor,
+                        fmt: FP8Format = E4M3):
+    """Twin of ``_quant_det_tiles_bwd_kernel``: ``(gx (R, LANE), ga_row (R, 1))``,
+    the clip mask to the plane and each row's sum of the clip cotangent's
+    terms."""
+    gx, route = _ste(x2, a_col, g2, fmt)
+    return gx, torch.sum(route, dim=1, keepdim=True)
 
 
 def _pack_codes(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,

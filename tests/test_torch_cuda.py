@@ -460,3 +460,142 @@ def test_lm_step_on_the_card_runs_only_the_kernels(dev):
     for name in QAT_MATMUL:
         assert fp8_quant.LAUNCHES[name] == before[name] + 3 * 7 + 2, name
     assert bool(torch.isfinite(loss))
+
+
+# ---------------------------------------------------------------------------
+# the one-device trainer's kernels: bf16 B1/B2, B7 on the plane, B9
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64), (8, 128, 2048), (1024, 5632), (7, 33)])
+def test_bf16_quant_det_pair_bitwise_against_twins(dev, shape):
+    x = _randn(shape, 21, 1.5, dev).to(torch.bfloat16)
+    g = (_randn(shape, 22, 1.0, dev).abs() * torch.sign(x.float())).to(torch.bfloat16)
+    for a in (torch.tensor(4.0, device=dev), torch.tensor(2.5, device=dev)):
+        out = fp8_quant.quant_det(x, a)
+        assert out.dtype == torch.bfloat16 and torch.equal(out, ref.quant_det(x, a))
+        gx, ga = fp8_quant.quant_det_bwd(x, a, g)
+        rgx, rga = ref.quant_det_bwd(x, a, g)
+        assert gx.dtype == torch.bfloat16 and ga.dtype == torch.float32
+        assert torch.equal(gx, rgx)
+        np.testing.assert_allclose(float(ga), float(rga), rtol=1e-5)
+
+
+def _plane(seg_rows, seed, dev):
+    """A ragged plane of segments (a stacked leaf's layers, then single
+    leaves), each with its own clip and a zero-padded tail."""
+    rows = sum(seg_rows)
+    x = _randn((rows, 1024), seed, 0.2, dev)
+    col = torch.empty((rows, 1), device=dev)
+    r0 = 0
+    for i, n in enumerate(seg_rows):
+        col[r0:r0 + n] = x[r0:r0 + n].abs().max() * (0.6 + 0.05 * (i % 5))
+        x[r0 + n - 1, 700:] = 0.0
+        r0 += n
+    x[0, 3] = col[0, 0]                    # one element on its clip
+    g = _randn((rows, 1024), seed + 1, 1.0, dev).abs() * torch.sign(x)
+    return x.contiguous(), col, g.contiguous()
+
+
+@pytest.mark.parametrize("seg_rows", [(1,), (3, 3, 3, 1, 7), (4096, 512, 512, 4096, 11264),
+                                      (2000,) * 4 + (191,)])
+def test_quant_det_tiles_pair_bitwise_against_twins(dev, seg_rows):
+    x, col, g = _plane(seg_rows, 31, dev)
+    before = dict(fp8_quant.LAUNCHES)
+    assert torch.equal(fp8_quant.quant_det_tiles(x, col), ref.quant_det_tiles(x, col))
+    gx, ga = fp8_quant.quant_det_tiles_bwd(x, col, g)
+    rgx, rga = ref.quant_det_tiles_bwd(x, col, g)
+    assert torch.equal(gx, rgx) and ga.shape == (x.shape[0], 1)
+    np.testing.assert_allclose(ga.cpu().numpy(), rga.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    assert fp8_quant.LAUNCHES["quant_det_tiles"] == before["quant_det_tiles"] + 1
+    assert fp8_quant.LAUNCHES["quant_det_tiles_bwd"] == before["quant_det_tiles_bwd"] + 1
+    # a plane element is a per-tensor element at the same (x, a)
+    assert torch.equal(fp8_quant.quant_det_tiles(x, col)[:1],
+                       fp8_quant.quant_det(x[:1].contiguous(), col[0, 0].contiguous()))
+
+
+@pytest.mark.parametrize("shape", [(135, 1024), (8191, 1024)])
+@pytest.mark.parametrize("alpha_layout", ["column", "full"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_fake_quant_amax_bitwise_against_b5_and_amax(dev, shape, alpha_layout, stochastic):
+    x = _randn(shape, 41, 0.2, dev)
+    a2 = x.abs().amax(dim=1, keepdim=True) * 0.9
+    if alpha_layout == "full":
+        a2 = a2.expand(shape).contiguous()
+    k = _key(dev) if stochastic else None
+    q, mx = fp8_quant.fake_quant_amax_tiles(x, a2, k)
+    assert torch.equal(q, fp8_quant.fake_quant_tiles(x, a2, k))
+    assert torch.equal(q, ref.fake_quant_amax_tiles(x, a2, k)[0])
+    assert torch.equal(mx, torch.amax(x.abs(), 1, keepdim=True))
+
+
+def test_trainer_wrappers_validate_inputs(dev):
+    x = _randn((4, 1024), 5, 0.2, dev)
+    col = x.abs().amax(dim=1, keepdim=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fp8_quant.quant_det_bwd(x.to(torch.bfloat16), col[0, 0].contiguous(), x)
+    with pytest.raises(ValueError, match="aligned"):
+        fp8_quant.quant_det_tiles(x.view(-1)[1:1025].reshape(1, 1024), col[:1])
+    with pytest.raises(ValueError, match=r"\(R, 1024\)"):
+        fp8_quant.quant_det_tiles(x[:, :512].contiguous(), col)
+    with pytest.raises(ValueError, match="alpha column"):
+        fp8_quant.quant_det_tiles_bwd(x, col[:3], x)
+
+
+def _reduced_lm(dev):
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cfg = configs.reduced(configs.get("tinyllama_1_1b"))
+    return cfg, registry.get_model(cfg), registry.get_model(cfg).init(0, device=dev)
+
+
+def test_plane_clip_gradients_are_bitwise_repeatable(dev):
+    """Two backward passes of ``plane.quantize_det`` on the card give the
+    same clip gradients to the bit: the per-row sums are a fixed tree and
+    the per-segment sums a fixed-order ``torch.sum`` (no atomics)."""
+    from repro_torch import tree
+    from repro_torch.core import plane
+
+    _, _, p = _reduced_lm(dev)
+    names = [n for n, _ in tree.flatten(p)]
+    spec = plane.make_plane_spec(p)
+    grads = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in tree.leaves(p)]
+        q = dict(tree.flatten(plane.quantize_det(tree.unflatten(names, leaves), spec=spec,
+                                                 out_dtype=torch.bfloat16)))
+        loss = sum((q[n].float() * torch.sign(q[n].float())).sum() for n in spec.q_names)
+        loss.backward()
+        grads.append({n: t.grad.clone() for n, t in zip(names, leaves) if t.grad is not None})
+    assert grads[0].keys() == grads[1].keys() and any(n.endswith("_qa") for n in grads[0])
+    for n in grads[0]:
+        assert torch.equal(grads[0][n], grads[1][n]), n
+
+
+def test_train_step_launches_the_plane_pair_once_a_step(dev):
+    """Reduced TinyLlama on the card, opt_level 1, two microbatches: one B7
+    forward and one B7 backward a step, B1/B2 (bf16) at every activation
+    site of both microbatches, no B10/B11; opt_level 0 the reverse."""
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.launch import steps
+
+    cfg, model, p = _reduced_lm(dev)
+    toks = torch.randint(0, cfg.vocab, (4, 65), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    sites = 7 * cfg.n_layers + cfg.ce_chunks
+    for opt_level in (1, 0):
+        opt = steps.make_optimizer(p, lr=1e-3)
+        step = steps.make_train_step(model, opt, QATConfig(), accum=2, opt_level=opt_level)
+        before = dict(fp8_quant.LAUNCHES)
+        _, _, m = step(p, opt.init(p), batch, 0)
+        torch.cuda.synchronize()
+        d = {k: fp8_quant.LAUNCHES[k] - before[k] for k in before}
+        assert bool(torch.isfinite(m["loss"]))
+        if opt_level == 1:
+            assert d["quant_det_tiles"] == d["quant_det_tiles_bwd"] == 1
+            assert d["quant_det"] == d["quant_det_bwd"] == 2 * sites
+            assert all(d[k] == 0 for k in QAT_MATMUL)
+        else:
+            assert d["quant_det_tiles"] == d["quant_det_tiles_bwd"] == 0
+            assert all(d[k] == 2 * sites for k in QAT_MATMUL)

@@ -142,13 +142,23 @@ def test_init_without_device_raises_on_cpu_only_host():
 
 def test_sgd_takes_the_reference_positional_order():
     """``sgd(lr, momentum, weight_decay, wd_mask, nesterov, trust_mask,
-    trust_frac)`` as in the reference: a momentum call raises instead of
-    silently running weight decay 0.9, and ``trust_frac`` is honoured."""
-    with pytest.raises(NotImplementedError, match="momentum"):
-        t_optim.sgd(0.1, 0.9)
-    with pytest.raises(NotImplementedError, match="nesterov"):
-        t_optim.sgd(0.1, nesterov=True)
+    trust_frac)`` as in the reference: ``sgd(0.1, 0.9)`` is momentum 0.9 (not
+    weight decay 0.9), and ``trust_frac`` is honoured."""
     p, _, _, _ = _setup("mlp")
+    tp0 = convert.from_jax_params(_np_tree(p), device="cpu")
+    ropt, topt = r_optim.sgd(0.1, 0.9), t_optim.sgd(0.1, 0.9)
+    g0 = jax.tree.map(lambda a: jnp.ones(a.shape, jnp.float32), p)
+    (r1, rs), (t1, ts) = (ropt.update(g0, ropt.init(p), p, 0),
+                          topt.update(convert.from_jax_params(_np_tree(g0), device="cpu"),
+                                      topt.init(tp0), tp0, 0))
+    r2, _ = ropt.update(g0, rs, p, 1)
+    t2, _ = topt.update(convert.from_jax_params(_np_tree(g0), device="cpu"), ts, tp0, 1)
+    for rupd, tupd, want in ((r1, t1, -0.1), (r2, t2, -0.1 * 1.9)):
+        ref = dict(tree.flatten(_np_tree(rupd)))
+        for n, v in tree.flatten(tupd):
+            np.testing.assert_array_equal(v.numpy(), ref[n], err_msg=n)
+            if not n.endswith(("_qa", "_qb")):   # clip updates sit in the trust region
+                np.testing.assert_allclose(v.numpy(), want, rtol=1e-6, err_msg=n)
     g = jax.tree.map(lambda a: jnp.asarray(
         np.random.default_rng(a.size + 1).standard_normal(a.shape).astype(np.float32)), p)
     args = (0.0, 1e-3, r_qat.weight_decay_mask(p), False, r_qat.clip_value_mask(p), 0.005)
