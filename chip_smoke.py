@@ -80,12 +80,16 @@ Phases, each fatal on failure (the script then exits non-zero):
 
 7. federated LM fine-tuning on full-width TinyLlama-1.1B (run after phase
    4, before 6): B10 ``qat_matmul`` and both B11 kernels (``qat_matmul_dx``,
-   ``qat_matmul_dw``) bitwise against their twins at every distinct
-   projection shape of a local step (the port's init weights, activations
-   of a real forward) and at a ragged (77, 130, 200), clip cotangents
-   within GA_RTOL, each timed beside its twin, ``torch.matmul`` on the
-   pre-quantized operands and its bound (``lm_kernel_phase``, right after
-   phase 2); one reduced-TinyLlama local step on the card against the CPU
+   ``qat_matmul_dw``) against their twins at every distinct projection
+   shape of a local step and of the trainer at opt_level 0 (the port's init
+   weights, activations of a real forward) and at a ragged (77, 130, 200):
+   B10 and dx (bf16 tensor cores) within the bar against the f64 product of
+   the twin's quantized operands (their worst error at most 4x the twin's
+   own, or 2^-20), dw bitwise, clip cotangents within GA_RTOL, each call
+   bitwise equal to a second one; each timed beside its twin,
+   ``torch.matmul`` on the pre-quantized operands and its bound
+   (``lm_kernel_phase``, right after phase 2); one reduced-TinyLlama local
+   step on the card against the CPU
    twins (``lm_card_vs_cpu_phase``, after phase 3); then
    ``repro_torch.bench.fed_lm`` at the example's defaults for 2 rounds, the
    counters zeroed just before and read just after: 8802606752 wire bytes a
@@ -1133,10 +1137,10 @@ TRAIN_BATCH = (8, 128)              # launch.train's default batch x sequence
 BF16_OPS_PER_S = 989e12             # H100 SXM dense bf16 tensor cores (the product's floor:
                                     # grid values are exact in bf16)
 QAT_MATMUL = ("qat_matmul", "qat_matmul_dx", "qat_matmul_dw")
-QAT_GEMM_INSTANCE = {   # the template instance of csrc/qat_matmul.cu each wrapper launches
-    "qat_matmul": "qat_gemm_kernel<false, false, true, true, false>",
-    "qat_matmul_dx": "qat_gemm_kernel<false, true, false, true, true>",
-    "qat_matmul_dw": "qat_gemm_kernel<true, false, true, false, true>",
+QAT_GEMM_INSTANCE = {   # every CUDA kernel of csrc/qat_matmul.cu a wrapper call launches
+    "qat_matmul": ("qat_fwd_wgmma_kernel", "qat_fwd_finish_kernel"),
+    "qat_matmul_dx": ("qat_dx_wgmma_kernel", "qat_dx_finish_kernel", "qat_fold_kernel"),
+    "qat_matmul_dw": ("qat_gemm_kernel<true, false, true, false, true>", "qat_fold_kernel"),
 }
 
 
@@ -1190,14 +1194,21 @@ def _lm_projection_cases(dev) -> list:
 def lm_kernel_phase(dev) -> dict:
     """B10 and both B11 kernels against their twins at every distinct
     projection shape of the LM paths (``fed_lm`` and the trainer at
-    opt_level 0) and at a ragged shape: out, gx and gw
-    bitwise, g_beta / g_alpha within GA_RTOL. The cotangent is
-    ``|N(0, 1)| * sign(out)``, the gradient of a weighted L1 of the output, so
-    ``g @ wq^T`` leans with x and the clip sums do not cancel. Times: the
-    wrapper call and the twin (CUDA events), and ``torch.matmul`` on the
-    pre-quantized operands (TF32 off), the one PyTorch call for the same
-    product. Bound: bytes (each input read once, each output written once)
-    over 3.35 TB/s or 2 M N K over the bf16 dense peak, the larger."""
+    opt_level 0) and at a ragged shape. B10's out and dx's gx, summed by
+    bf16 tensor cores over a split reduction, against the f64 product of the
+    twin's quantized operands (``ref.qat_matmul_f64``, ``qat_matmul_dx_f64``):
+    per element ``|out - ref64| / mag``, the kernel's worst at most 4x the
+    twin's own or 2^-20 (``ref.within_bar``); dw's gw bitwise; g_beta /
+    g_alpha within GA_RTOL; each kernel's second call on the same inputs
+    bitwise equal to its first. The cotangent is ``|N(0, 1)| * sign(out)``,
+    the gradient of a weighted L1 of the output, so ``g @ wq^T`` leans with x
+    and the clip sums do not cancel. Times: the wrapper call and the twin
+    (CUDA events), and ``torch.matmul`` on the pre-quantized operands (TF32
+    off), the one PyTorch call for the same product. Bound: bytes (each input
+    read once, each output written once) over 3.35 TB/s or 2 M N K over the
+    bf16 dense peak, the larger. ``max_abs_err``: B10's out and dx's gx
+    against ref64, dw's gw against its twin, and each clip cotangent's
+    distance from the twin's."""
     from repro_torch.kernels import fp8_matmul as FM
     from repro_torch.kernels import ref as R
 
@@ -1211,26 +1222,49 @@ def lm_kernel_phase(dev) -> dict:
     cases.append(("ragged", (torch.randn((m, k), generator=g) * 1.5).to(dev), w,
                   torch.tensor(2.5, device=dev), w.abs().max().reshape(1, 1)))
     worst = dict.fromkeys(QAT_MATMUL, 0.0)
+    errors = {}
     timings = {name: {} for name in QAT_MATMUL}
     for label, x, w, beta, alpha in cases:
         t_case = time.perf_counter()
         m, k, n = x.shape[0], x.shape[1], w.shape[1]
-        out = FM.qat_matmul(x, w, beta, alpha)
         rout = R.qat_matmul(x, w, beta, alpha)
-        bad, err = mismatches(out, rout)
-        check(bad == 0, f"qat_matmul {label} {(m, k, n)}: {bad} of {out.numel()} differ")
-        worst["qat_matmul"] = max(worst["qat_matmul"], err)
         gr = (torch.randn((m, n), generator=g).abs().to(dev) * torch.sign(rout)).contiguous()
+        got = {"qat_matmul": (FM.qat_matmul(x, w, beta, alpha), None)}
+        want = {"qat_matmul": (rout, None)}
+        for name in ("qat_matmul_dx", "qat_matmul_dw"):
+            got[name] = getattr(FM, name)(gr, x, w, beta, alpha)
+            want[name] = getattr(R, name)(gr, x, w, beta, alpha)
+        again = {"qat_matmul": (FM.qat_matmul(x, w, beta, alpha), None),
+                 **{name: getattr(FM, name)(gr, x, w, beta, alpha)
+                    for name in ("qat_matmul_dx", "qat_matmul_dw")}}
+        for name in QAT_MATMUL:
+            check(all(a is b or torch.equal(a, b) for a, b in zip(got[name], again[name])),
+                  f"{name} {label} {(m, k, n)}: two calls differ")
+        errs = {}
+        for name, f64 in (("qat_matmul", R.qat_matmul_f64(x, w, beta, alpha)),
+                          ("qat_matmul_dx", R.qat_matmul_dx_f64(gr, x, w, beta, alpha))):
+            ref64, mag = f64
+            e_k = R.product_error(got[name][0], ref64, mag)
+            e_t = R.product_error(want[name][0], ref64, mag)
+            errs[name] = (e_k, e_t)
+            check(R.within_bar(e_k, e_t), f"{name} {label} {(m, k, n)}: error {e_k:.4g} "
+                  f"beyond max({R.BAR_FACTOR:g} x twin's {e_t:.4g}, 2^-20)")
+            worst[name] = max(worst[name],
+                              float((got[name][0].double() - ref64).abs().max()))
+            del ref64, mag
+        bad, err = mismatches(got["qat_matmul_dw"][0], want["qat_matmul_dw"][0])
+        check(bad == 0, f"qat_matmul_dw {label} {(m, k, n)}: {bad} of "
+              f"{got['qat_matmul_dw'][0].numel()} differ")
+        worst["qat_matmul_dw"] = max(worst["qat_matmul_dw"], err)
         clips = {}
         for name in ("qat_matmul_dx", "qat_matmul_dw"):
-            got, gc = getattr(FM, name)(gr, x, w, beta, alpha)
-            want, wc = getattr(R, name)(gr, x, w, beta, alpha)
-            bad, err = mismatches(got, want)
-            rel = abs(float(gc) - float(wc)) / max(abs(float(wc)), 1e-30)
-            check(bad == 0, f"{name} {label} {(m, k, n)}: {bad} of {got.numel()} differ")
+            gc, wc = float(got[name][1]), float(want[name][1])
+            rel = abs(gc - wc) / max(abs(wc), 1e-30)
             check(rel <= GA_RTOL, f"{name} {label}: clip cotangent rel err {rel:.3g}")
-            worst[name] = max(worst[name], err, abs(float(gc) - float(wc)))
-            clips[name] = (float(gc), float(wc), rel)
+            worst[name] = max(worst[name], abs(gc - wc))
+            clips[name] = (gc, wc, rel)
+        errors[(m, k, n)] = errs
+        del got, want, again
         xq, wq = R.quant_det(x, beta), R.quant_det(w, alpha)
         ops = 2.0 * m * k * n
         io = {"qat_matmul": 4.0 * (m * k + k * n + m * n),
@@ -1255,8 +1289,14 @@ def lm_kernel_phase(dev) -> dict:
                 "plain_ms": time_ms(twin, reps=3, iters=1, warmup=1),
                 "library_ms": time_ms(lib, reps=5, iters=10, warmup=2),
                 "bound_ms": b_ms, "bound_by": b_by, "shape": [m, k, n]}
+            if name in errs:
+                timings[name][(m, k, n)]["err"], timings[name][(m, k, n)]["err_twin"] = \
+                    errs[name]
         t = {name: timings[name][(m, k, n)] for name in QAT_MATMUL}
-        print(f"[lm-kernels] {label} (M, K, N) = {(m, k, n)}: bitwise; "
+        print(f"[lm-kernels] {label} (M, K, N) = {(m, k, n)}: "
+              + "; ".join(f"{name} err {e_k:.4g} (twin {e_t:.4g})"
+                          for name, (e_k, e_t) in errs.items())
+              + ", dw bitwise, all repeat bitwise; "
               + "; ".join(f"{name} {t[name]['ms']:.4f} ms (twin {t[name]['plain_ms']:.2f}, "
                           f"matmul {t[name]['library_ms']:.4f}, bound {t[name]['bound_ms']:.5f} "
                           f"{t[name]['bound_by']})" for name in QAT_MATMUL)
@@ -1264,6 +1304,9 @@ def lm_kernel_phase(dev) -> dict:
               + ", ".join(f"{a:.9g}/{b:.9g}/{r:.2g}" for a, b, r in clips.values())
               + f" ({time.perf_counter() - t_case:.1f} s)")
         del xq, wq, gr
+    slower = [(name, shp) for name in ("qat_matmul", "qat_matmul_dx")
+              for shp, t in timings[name].items() if t["ms"] > t["library_ms"]]
+    print(f"[lm-kernels] B10 / dx slower than torch.matmul at: {slower or 'no shape'}")
     print(f"[lm-kernels] phase {time.perf_counter() - t_phase:.1f} s")
     return {"worst": worst, "timings": timings}
 
@@ -1271,8 +1314,9 @@ def lm_kernel_phase(dev) -> dict:
 def lm_card_vs_cpu_phase(dev) -> None:
     """One reduced-TinyLlama local step (loss, every gradient, one AdamW(1e-3)
     update) on the card against the same step on the CPU twins, from the
-    same weights and tokens. The kernels equal the twins bitwise on one
-    device; the card's bf16 elementwise ops, exp / rsqrt / sin / cos and
+    same weights and tokens. B10 and dx sum in another order than their
+    twins (a few f32 ULP of their terms); the card's bf16 elementwise ops,
+    exp / rsqrt / sin / cos and
     attention sums differ from the CPU's in the last bits, and an FP8
     activation code near a midpoint then takes the other grid point and
     moves its token row: the bars of the CPU parity test against the
@@ -1338,8 +1382,11 @@ def lm_card_vs_cpu_phase(dev) -> None:
 def _profile_kernels(prof, wall_us: float, s_round: float, label: str,
                      instances: dict | None = None) -> dict:
     """Device busy share and the top kernels of a ``torch.profiler`` window;
-    returns the device us per launch of each kernel in ``instances`` (name:
-    its CUDA name; the B10/B11 kernels by default)."""
+    returns the device us per call of each wrapper in ``instances`` (name:
+    its CUDA name, or the names of every CUDA kernel one call launches, the
+    first its main kernel, which may run as several template instances;
+    each other kernel launches once a call, and may be shared with another
+    wrapper; the B10/B11 kernels by default)."""
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
@@ -1352,11 +1399,19 @@ def _profile_kernels(prof, wall_us: float, s_round: float, label: str,
         print(f"[profile]   {dev_time(e) / 1e3:10.3f} ms  x{e.count:<7d} {e.key[:100]}")
     per_launch = {}
     for name, inst in (instances or QAT_GEMM_INSTANCE).items():
-        for e in rows:
-            if inst in e.key:
-                per_launch[name] = dev_time(e) / max(e.count, 1)
-                print(f"[profile] ours: {name:14s} x{e.count:<6d} "
-                      f"{per_launch[name]:.2f} us of device time per launch")
+        main, *others = (inst,) if isinstance(inst, str) else inst
+        mains = [e for e in rows if main in e.key]
+        calls = sum(e.count for e in mains)
+        if not calls:
+            continue
+        per_launch[name] = sum(dev_time(e) for e in mains) / calls
+        for e in mains + [e for part in others for e in rows if part in e.key]:
+            print(f"[profile] ours: {name:14s} x{e.count:<6d} "
+                  f"{dev_time(e) / max(e.count, 1):.2f} us of device time per launch "
+                  f"in {e.key[:60]}")
+            if e not in mains:
+                per_launch[name] += dev_time(e) / max(e.count, 1)
+        print(f"[profile] ours: {name:14s} {per_launch[name]:.2f} us a call ({calls} calls)")
     return {"busy_ms": busy / 1e3, "device_us": per_launch}
 
 

@@ -48,14 +48,31 @@ __device__ __forceinline__ float scale(float p, float b, const Fmt& f) {
   return exp2f((p - b) - (float)f.mant);
 }
 
+// The grid point of Q_det at x (clip a, bias b) as its parts: the integer
+// code n = round(clip(x) / s), the exponent p and the step s = 2^(p - b - m),
+// so that Q_det(x) = s * n.
+struct DetCode {
+  float n;
+  float p;
+  float s;
+};
+
+__device__ __forceinline__ DetCode det_code(float x, float a, float b,
+                                            const Fmt& f) {
+  const float xc = clip(x, a);
+  const float p = exponent(xc, b);
+  const float s = scale(p, b, f);
+  return {rintf(xc / s), p, s};
+}
+
 // Q_det of one element at clip a (bias b): s * round(clip(x) / s). B1
 // (quant_det.cu) and B7 (quant_det_tiles.cu) both call it, so a plane
-// element equals a per-tensor element at the same (x, a).
+// element equals a per-tensor element at the same (x, a); the QAT products
+// (qat_matmul.cu) stage the same det_code.
 __device__ __forceinline__ float quant_det_elem(float x, float a, float b,
                                                 const Fmt& f) {
-  const float xc = clip(x, a);
-  const float s = scale(exponent(xc, b), b, f);
-  return s * rintf(xc / s);
+  const DetCode c = det_code(x, a, b, f);
+  return c.s * c.n;
 }
 
 // I/O in f32 or bf16, arithmetic in f32: a bf16 activation is widened

@@ -41,16 +41,24 @@ __device__ __forceinline__ float block_max(float v, float* sh) {
   return sh[0];
 }
 
+// Pass 2 in one block of kThreads: the per-block partials of pass 1 folded
+// into out[0], each thread's strided share then the fixed tree.
+__device__ __forceinline__ void fold_partials(const float* __restrict__ partial,
+                                              int n_parts, float* __restrict__ out,
+                                              float* sh) {
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < n_parts; i += kThreads) acc += partial[i];
+  const float total = block_sum(acc, sh);
+  if (threadIdx.x == 0) out[0] = total;
+}
+
 }  // namespace fp8
 
-// Pass 2: one block folds the per-block partials of pass 1 into out[0].
-// Static, so each translation unit that includes this header has its own.
+// Pass 2 as a kernel. Static, so each translation unit that includes this
+// header has its own.
 static __global__ void sum_partials_kernel(const float* __restrict__ partial,
                                            int n_parts,
                                            float* __restrict__ out) {
   __shared__ float sh[fp8::kThreads];
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < n_parts; i += fp8::kThreads) acc += partial[i];
-  const float total = fp8::block_sum(acc, sh);
-  if (threadIdx.x == 0) out[0] = total;
+  fp8::fold_partials(partial, n_parts, out, sh);
 }

@@ -161,7 +161,9 @@ def load() -> ctypes.CDLL:
         lib.repro_rans_encode.argtypes = [p, i64, i64, i64, p, p, p, p, p, p]
         lib.repro_rans_decode.argtypes = [p, i64, p, p, i64, i64, p, p, p, p, p]
         lib.repro_qat_matmul_blocks.argtypes = [i32, i32]
-        lib.repro_qat_matmul.argtypes = [p, p, p, p, p, i32, i32, i32, *fmt_args, p]
+        lib.repro_qat_matmul_scratch.argtypes = [i32, i32, i32, i32]
+        lib.repro_qat_matmul_scratch.restype = ctypes.c_longlong
+        lib.repro_qat_matmul.argtypes = [p, p, p, p, p, p, i32, i32, i32, *fmt_args, p]
         lib.repro_qat_matmul_dx.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i32,
                                             *fmt_args, p]
         lib.repro_qat_matmul_dw.argtypes = lib.repro_qat_matmul_dx.argtypes

@@ -424,10 +424,14 @@ def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: i
 # ---------------------------------------------------------------------------
 #
 # Each output is summed over the reduction index in ascending order, one
-# product at a time, mul and add rounded separately: the kernel's order, so
-# the twin is bitwise equal to it on the same card (``torch.matmul`` sums in
-# another order). The backward's epilogue is ``quant_det_bwd`` of the forward
-# operand, with the summed product as its cotangent.
+# product at a time, mul and add rounded separately: dw's kernel order, so
+# that twin is bitwise equal to it on the same card (``torch.matmul`` sums in
+# another order). The B10 and dx kernels sum bf16 frames on tensor cores
+# over a split reduction: they share the twins' codes, and each is held
+# against the f64 product of the twin's quantized operands
+# (``qat_matmul_f64``, ``qat_matmul_dx_f64``) at ``within_bar``. The
+# backward's epilogue is ``quant_det_bwd`` of the forward operand, with the
+# summed product as its cotangent.
 
 
 def qat_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
@@ -462,3 +466,71 @@ def qat_matmul_dw(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     for m in range(g.shape[0]):
         acc.add_(xq[m].reshape(-1, 1) * g[m:m + 1, :])
     return quant_det_bwd(w, alpha, acc, fmt)
+
+
+# The staging arithmetic of the B10 / dx tensor-core kernels, and the bar
+# they are held to. Nothing on the main path calls these: they are the
+# kernels' arithmetic written out for the tests and ``chip_smoke.py``.
+
+BAR_FACTOR = 4.0          # the kernel's worst error at most 4x the twin's ...
+BAR_FLOOR = 2.0 ** -20    # ... or 16 f32 ULP, whichever is larger
+
+
+def split_bf16x3(g: torch.Tensor):
+    """``(hi, mid, lo)`` bf16 with ``g == hi + mid + lo`` exactly for f32
+    ``|g| >= 2^-110`` (within 2^-134 below): ``hi = bf16(g)``, ``mid =
+    bf16(g - hi)``, ``lo = g - hi - mid`` (at most 8 significant bits), as
+    ``qat_matmul.cu::split3``."""
+    g = g.to(torch.float32)
+    hi = g.to(torch.bfloat16)
+    r = g - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def quant_det_frame(x: torch.Tensor, alpha: torch.Tensor, fmt: FP8Format = E4M3):
+    """``(frame, s1)``: ``Q_det(x; alpha)`` as its code times ``2^(p - 1)``,
+    exact in bf16, and the f32 grid step at ``p = 1``, as
+    ``qat_matmul.cu::frame_elem`` / ``s1_of`` stage it. ``frame * s1`` is
+    within one f32 ULP of ``quant_det`` (equal at ``p = 1``)."""
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    b = _bias(a, fmt)
+    xc = _clip(x.to(torch.float32), a)
+    p, s = _scale_p(xc, b, fmt)
+    frame = (torch.round(xc / s) * torch.exp2(p - 1.0)).to(torch.bfloat16)
+    return frame, torch.exp2(1.0 - b - fmt.mant)
+
+
+def qat_matmul_f64(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+                   alpha: torch.Tensor, fmt: FP8Format = E4M3):
+    """``(ref64, mag)``: ``xq @ wq`` and ``|xq| @ |wq|`` in f64, xq and wq
+    this module's ``quant_det``."""
+    xq = quant_det(x, beta, fmt).double()
+    wq = quant_det(w, alpha, fmt).double()
+    return xq @ wq, xq.abs() @ wq.abs()
+
+
+def qat_matmul_dx_f64(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                      beta: torch.Tensor, alpha: torch.Tensor, fmt: FP8Format = E4M3):
+    """``(ref64, mag)``: ``g @ wq^T`` and ``|g| @ |wq|^T`` in f64, both masked
+    by ``1{|x| <= beta}`` (beta floored as the kernels floor it)."""
+    wq = quant_det(w, alpha, fmt).double()
+    b = torch.clamp(beta.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    inside = (x.abs() <= b).double()
+    g64 = g.double()
+    return (g64 @ wq.t()) * inside, (g64.abs() @ wq.abs().t()) * inside
+
+
+def product_error(out: torch.Tensor, ref64: torch.Tensor, mag: torch.Tensor) -> float:
+    """The largest ``|out - ref64| / mag`` over the elements. Where ``mag ==
+    0`` every term is 0: there ``|out - ref64|`` itself counts, 0 for a right
+    kernel."""
+    d = (out.double() - ref64).abs()
+    err = torch.where(mag > 0, d / torch.where(mag > 0, mag, 1.0), d)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def within_bar(err_kernel: float, err_twin: float) -> bool:
+    """The B10 / dx contract: no less accurate than the twin, up to 4x or 16 ULP."""
+    return err_kernel <= max(BAR_FACTOR * err_twin, BAR_FLOOR)

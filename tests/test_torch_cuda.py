@@ -9,7 +9,11 @@ run on a machine that has only PyTorch:
 Tolerance: bitwise, except the scalar clip cotangent at relative 1e-5 (the
 kernel reduces per-block partial sums in a fixed order, the twin with
 ``torch.sum``; the cotangent is drawn with the sign of x, so the sum does
-not cancel and a relative error measures the kernel).
+not cancel and a relative error measures the kernel), and B10 / B11 dx,
+which sum bf16 frames on tensor cores over a split reduction: per element
+``|out - ref64| / mag`` against the f64 product of the twin's quantized
+operands, at most 4x the twin's own worst or 2^-20 (``ref.within_bar``), and
+two calls bitwise equal.
 """
 import numpy as np
 import pytest
@@ -383,18 +387,92 @@ def _matmul_case(m, k, n, seed, dev):
     return x, w, beta, alpha, g
 
 
-@pytest.mark.parametrize("shape", [(77, 130, 200), (1, 1, 1), (64, 16, 64), (256, 2048, 256),
-                                   (32, 2048, 1000)])
+QAT_SHAPES = [(77, 130, 200), (1, 1, 1), (64, 16, 64), (256, 2048, 256), (32, 2048, 1000),
+              (32, 2048, 32000), (128, 2048, 1000), (13, 64, 40)]
+
+
+def _bar(kernel_out, twin_out, ref64, mag, label):
+    e_k = ref.product_error(kernel_out, ref64, mag)
+    e_t = ref.product_error(twin_out, ref64, mag)
+    assert ref.within_bar(e_k, e_t), f"{label}: error {e_k:.3g}, twin's {e_t:.3g}"
+
+
+@pytest.mark.parametrize("shape", QAT_SHAPES)
 def test_qat_matmul_kernels_bitwise_against_twins(dev, shape):
+    """dw bitwise against its twin; B10 and dx at the bar against the f64
+    product (a tensor-core sum cannot equal an ascending f32 loop); every
+    clip cotangent within 1e-5 of the twin's."""
     from repro_torch.kernels import fp8_matmul
     x, w, beta, alpha, g = _matmul_case(*shape, 21, dev)
+    _bar(fp8_matmul.qat_matmul(x, w, beta, alpha), ref.qat_matmul(x, w, beta, alpha),
+         *ref.qat_matmul_f64(x, w, beta, alpha), "qat_matmul")
+    got, gc = fp8_matmul.qat_matmul_dx(g, x, w, beta, alpha)
+    want, wc = ref.qat_matmul_dx(g, x, w, beta, alpha)
+    _bar(got, want, *ref.qat_matmul_dx_f64(g, x, w, beta, alpha), "qat_matmul_dx")
+    np.testing.assert_allclose(float(gc), float(wc), rtol=1e-5, err_msg="qat_matmul_dx")
+    got, gc = fp8_matmul.qat_matmul_dw(g, x, w, beta, alpha)
+    want, wc = ref.qat_matmul_dw(g, x, w, beta, alpha)
+    assert torch.equal(got, want), "qat_matmul_dw"
+    np.testing.assert_allclose(float(gc), float(wc), rtol=1e-5, err_msg="qat_matmul_dw")
+
+
+@pytest.mark.parametrize("shape", [(77, 130, 200), (32, 2048, 32000), (256, 2048, 5632)])
+def test_qat_matmul_kernels_are_deterministic(dev, shape):
+    """Two calls on the same inputs are bitwise equal, the split reduction
+    included (no atomics; shares summed in a fixed order)."""
+    from repro_torch.kernels import fp8_matmul
+    x, w, beta, alpha, g = _matmul_case(*shape, 23, dev)
     assert torch.equal(fp8_matmul.qat_matmul(x, w, beta, alpha),
-                       ref.qat_matmul(x, w, beta, alpha))
+                       fp8_matmul.qat_matmul(x, w, beta, alpha))
     for name in ("qat_matmul_dx", "qat_matmul_dw"):
-        got, gc = getattr(fp8_matmul, name)(g, x, w, beta, alpha)
-        want, wc = getattr(ref, name)(g, x, w, beta, alpha)
-        assert torch.equal(got, want), name
-        np.testing.assert_allclose(float(gc), float(wc), rtol=1e-5, err_msg=name)
+        a, ac = getattr(fp8_matmul, name)(g, x, w, beta, alpha)
+        b, bc = getattr(fp8_matmul, name)(g, x, w, beta, alpha)
+        assert torch.equal(a, b) and torch.equal(ac, bc), name
+
+
+def _exponent_steps(alpha, fmt, dev, spread=40):
+    """Values within ``spread`` f32 ULP of every point where quant_det's
+    exponent p = floor(log2|x| + b) steps up (found by bisection with the
+    twin's own arithmetic), up to alpha, both signs: where the kernels'
+    exponent tables could part from the twin."""
+    a = alpha.reshape(())
+    b = ref._bias(a, fmt)
+    ks = torch.arange(2, 2 ** fmt.exp, device=dev, dtype=torch.float32)
+    lo = torch.zeros(ks.shape, dtype=torch.int32, device=dev)
+    hi = torch.full(ks.shape, int(a.view(torch.int32)), dtype=torch.int32, device=dev)
+    p = lambda bits: torch.floor(torch.log2(bits.view(torch.float32)) + b)
+    while bool((hi - lo > 1).any()):
+        mid = (lo + hi) // 2
+        up = p(mid) >= ks
+        hi, lo = torch.where(up, mid, hi), torch.where(up, lo, mid)
+    bits = (hi[:, None] + torch.arange(-spread, spread, device=dev, dtype=torch.int32)).reshape(-1)
+    vals = bits.clamp(1, int(a.view(torch.int32))).view(torch.float32)
+    return torch.cat([vals, -vals])
+
+
+@pytest.mark.parametrize("fmt", [E4M3, E5M2])
+@pytest.mark.parametrize("alpha", [0.0731, 1.0, 2.5, 6.4, 1e-3, 37.0])
+def test_qat_matmul_codes_at_the_exponent_steps(dev, fmt, alpha):
+    """The frames the tensor-core kernels stage carry quant_det's codes at
+    every exponent step: dx with g the identity returns w's grid values,
+    B10 with w the identity x's, each within 2^-20 of the twin's value
+    (a wrong code is off by 1/16 or more)."""
+    from repro_torch.kernels import fp8_matmul
+    a = torch.tensor(alpha, device=dev)
+    vals = _exponent_steps(a, fmt, dev)
+    n = 64
+    k = -(-vals.numel() // n)
+    w = torch.zeros(k * n, device=dev)
+    w[:vals.numel()] = vals
+    w = w.reshape(k, n)
+    eye = torch.eye(n, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    gx, _ = fp8_matmul.qat_matmul_dx(eye, torch.zeros(n, k, device=dev), w, one, a, fmt)
+    want = ref.quant_det(w, a, fmt).t()
+    assert float(((gx - want).abs() / want.abs().clamp_min(1e-30)).max()) <= 2.0 ** -20
+    out = fp8_matmul.qat_matmul(w, eye, a, one, fmt)
+    want = ref.quant_det(w, a, fmt) * ref.quant_det(eye, one, fmt)[0, 0]
+    assert float(((out - want).abs() / want.abs().clamp_min(1e-30)).max()) <= 2.0 ** -20
 
 
 def test_qat_matmul_dispatch_launches_the_kernels_never_the_twins(dev, monkeypatch):
@@ -415,7 +493,7 @@ def test_qat_matmul_dispatch_launches_the_kernels_never_the_twins(dev, monkeypat
     assert b.grad.shape == () and a.grad.shape == (1, 1)
     monkeypatch.undo()
     want, _ = ref.qat_matmul_dx(g, x.detach(), w.detach(), beta, alpha)
-    assert torch.equal(x.grad, want)
+    _bar(x.grad, want, *ref.qat_matmul_dx_f64(g, x.detach(), w.detach(), beta, alpha), "x.grad")
     with pytest.raises(ValueError, match="contiguous"):
         fp8_matmul.qat_matmul(x.detach().t().contiguous().t(), w.detach(), beta, alpha)
     with pytest.raises(ValueError, match="one value"):

@@ -1,0 +1,176 @@
+"""The staging arithmetic of the B10 / dx tensor-core kernels
+(``csrc/qat_matmul.cu``), on the CPU: ``ref.split_bf16x3`` (the three-way
+bf16 split of the f32 cotangent), ``ref.quant_det_frame`` (a quantized
+operand as its integer code times a power of two, exact in bf16, and the f32
+step that scales it back), and the products the kernels form from them.
+
+The kernels' contract on the card (``chip_smoke.py``, ``tests/test_torch_
+cuda.py``): per element, ``|out - ref64| / mag``, with ``ref64`` the f64
+product of the twin's quantized operands and ``mag`` that of their absolute
+values, at most ``max(4 x the twin's worst, 2^-20)``. Here the products are
+summed in f64 over the bf16 pieces and rounded once to f32, then scaled in
+f32 as the kernels' second pass does: what remains of the contract without
+the card's summation order. The reference's interpret-mode Pallas kernels
+(``repro.kernels.fp8_matmul``) are held to the same framed products within
+1e-5 of the magnitude sum, as ``test_torch_qat_matmul.py`` holds the twins.
+
+Inputs are seeded numpy arrays at small and ragged shapes, E4M3 and E5M2.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.fp8 import E4M3 as R_E4M3
+from repro.core.fp8 import E5M2 as R_E5M2
+from repro.kernels import fp8_matmul as r_fm
+from repro_torch.core.fp8 import E4M3, E5M2
+from repro_torch.kernels import ref
+
+FMTS = {"e4m3": (R_E4M3, E4M3), "e5m2": (R_E5M2, E5M2)}
+ELEM_RTOL = 1e-5
+SHAPES = [(77, 130, 200), (5, 17, 3), (1, 1, 1), (33, 64, 129), (32, 256, 1000)]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _inputs(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, k)) * 1.5).astype(np.float32)
+    x.flat[rng.integers(0, x.size, 3)] = 2.5          # exactly on beta
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    beta = np.float32(2.5)
+    alpha = np.float32(np.abs(w).max())                 # max|w| on the clip
+    out = ref.qat_matmul(_t(x), _t(w), _t(beta), _t(alpha)).numpy()
+    g = (np.abs(rng.normal(size=(m, n))) * np.sign(out)).astype(np.float32)
+    return _t(x), _t(w), _t(beta), _t(alpha), _t(g)
+
+
+def _ulp(v: torch.Tensor) -> torch.Tensor:
+    a = v.abs()
+    return torch.nextafter(a, torch.tensor(float("inf"))) - a
+
+
+def framed_qat_matmul(x, w, beta, alpha, fmt):
+    """B10 as its kernel stages it: frames of x and w, summed (in f64, rounded
+    once), times s1(alpha) then s1(beta)."""
+    fx, sx = ref.quant_det_frame(x, beta, fmt)
+    fw, sw = ref.quant_det_frame(w, alpha, fmt)
+    acc = (fx.double() @ fw.double()).float()
+    return (acc * sw) * sx
+
+
+def framed_qat_matmul_dx(g, x, w, beta, alpha, fmt, pieces=3):
+    """dx as its kernel stages it: the first ``pieces`` of g's split against
+    w's frame, times s1(alpha), masked at x's clip."""
+    fw, sw = ref.quant_det_frame(w, alpha, fmt)
+    g3 = sum(p.double() for p in ref.split_bf16x3(g)[:pieces])
+    acc = (g3 @ fw.double().t()).float()
+    return (acc * sw) * (x.abs() <= beta.reshape(())).float()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_reconstructs_f32_exactly_above_the_subnormal_range(seed):
+    rng = np.random.default_rng(seed)
+    n = 1 << 16
+    g = rng.uniform(1.0, 2.0, n) * np.exp2(rng.integers(-126, 127, n))
+    g *= np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    edges = [0.0, -0.0, 2.0 ** -126, 2.0 ** -110, 1.0 + 2.0 ** -23, -(2.0 - 2.0 ** -23),
+             3.0e38, -3.0e38, 2.0 ** -140]
+    gt = _t(np.concatenate([g, edges]))
+    hi, mid, lo = ref.split_bf16x3(gt)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    rec = hi.double() + mid.double() + lo.double()
+    exact = gt.abs() >= 2.0 ** -110
+    assert torch.equal(rec[exact], gt.double()[exact])
+    # below 2^-110 the last piece is a bf16 subnormal: off by at most 2^-134
+    assert float((rec - gt.double()).abs().max()) <= 2.0 ** -134
+    # every piece is its f32 value exactly (no second rounding hides in lo)
+    assert torch.equal(lo.float()[exact], ((gt - hi.float()) - mid.float())[exact])
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("alpha", [0.0731, 1.0, 2.5, 4.0, None])
+def test_frame_is_the_code_times_a_power_of_two(fmt, alpha):
+    _, tfmt = FMTS[fmt]
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(257, 129)) * 1.5).astype(np.float32)
+    a = np.float32(np.abs(x).max() if alpha is None else alpha)
+    x.flat[:4] = [a, -a, 0.0, 1e-30]
+    xt, at = _t(x), _t(a)
+    frame, s1 = ref.quant_det_frame(xt, at, tfmt)
+    assert frame.dtype == torch.bfloat16 and s1.dtype == torch.float32
+    # the code n and exponent p, from the twin's own steps (quant_det's)
+    xc = ref._clip(xt, at)
+    p, s = ref._scale_p(xc, ref._bias(at, tfmt), tfmt)
+    n = torch.round(xc / s)
+    assert torch.equal(s * n, ref.quant_det(xt, at, tfmt))
+    assert torch.equal(frame.double(), n.double() * torch.exp2(p.double() - 1.0))
+    assert bool((n.abs() <= 2 ** (tfmt.mant + 1)).all()) and bool((p >= 1).all())
+    # +-alpha: the largest code at the top exponent, finite in bf16
+    top = (2 ** (tfmt.mant + 1) - 1) * 2.0 ** (2 ** tfmt.exp - 2)
+    assert frame[0, 0].item() == top and frame[0, 1].item() == -top
+    # frame * s1 within one f32 ULP of quant_det
+    qt = ref.quant_det(xt, at, tfmt)
+    d = (frame.float() * s1 - qt).abs()
+    assert bool((d <= _ulp(qt)).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_framed_products_meet_the_bar_against_f64(shape, fmt):
+    _, tfmt = FMTS[fmt]
+    x, w, beta, alpha, g = _inputs(*shape)
+    r64, mag = ref.qat_matmul_f64(x, w, beta, alpha, tfmt)
+    e_twin = ref.product_error(ref.qat_matmul(x, w, beta, alpha, tfmt), r64, mag)
+    e_frame = ref.product_error(framed_qat_matmul(x, w, beta, alpha, tfmt), r64, mag)
+    assert ref.within_bar(e_frame, e_twin), (e_frame, e_twin)
+
+    d64, dmag = ref.qat_matmul_dx_f64(g, x, w, beta, alpha, tfmt)
+    gx_twin, _ = ref.qat_matmul_dx(g, x, w, beta, alpha, tfmt)
+    e_twin = ref.product_error(gx_twin, d64, dmag)
+    e_frame = ref.product_error(framed_qat_matmul_dx(g, x, w, beta, alpha, tfmt), d64, dmag)
+    assert ref.within_bar(e_frame, e_twin), (e_frame, e_twin)
+
+
+@pytest.mark.parametrize("shape", [(77, 130, 200), (33, 64, 129), (32, 256, 1000)])
+def test_a_bf16_cotangent_fails_the_bar(shape):
+    """The bar is tight enough to see one rounding of g: the hi piece alone
+    (g cast to bf16) misses it."""
+    x, w, beta, alpha, g = _inputs(*shape, seed=5)
+    d64, dmag = ref.qat_matmul_dx_f64(g, x, w, beta, alpha)
+    e_twin = ref.product_error(ref.qat_matmul_dx(g, x, w, beta, alpha)[0], d64, dmag)
+    gx = framed_qat_matmul_dx(g, x, w, beta, alpha, E4M3, pieces=1)
+    assert not ref.within_bar(ref.product_error(gx, d64, dmag), e_twin)
+
+
+def test_product_error_and_bar():
+    ref64 = torch.tensor([1.0, -2.0, 0.0, 3.0], dtype=torch.float64)
+    mag = torch.tensor([2.0, 4.0, 0.0, 3.0], dtype=torch.float64)
+    out = torch.tensor([1.5, -2.0, 0.0, 3.0])
+    assert ref.product_error(out, ref64, mag) == 0.25
+    assert ref.product_error(torch.tensor([1.0, -2.0, 1e-3, 3.0]), ref64, mag) == \
+        pytest.approx(1e-3)   # an output where every term is 0 counts absolutely
+    assert ref.within_bar(2.0 ** -20, 0.0) and not ref.within_bar(2.0 ** -19, 2.0 ** -22)
+    assert ref.within_bar(4e-6, 1e-6) and not ref.within_bar(4.1e-6, 1e-6)
+
+
+@pytest.mark.parametrize("shape", [(77, 130, 200), (33, 64, 129)])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_framed_products_match_reference_interpret_kernels(shape, fmt):
+    rfmt, tfmt = FMTS[fmt]
+    x, w, beta, alpha, g = _inputs(*shape, seed=1)
+    jx, jw, jb, ja, jg = (jnp.asarray(t.numpy()) for t in (x, w, beta, alpha, g))
+    r_out = np.asarray(r_fm.qat_matmul(jx, jw, jb, ja, fmt=rfmt, interpret=True))
+    r_gx, _ = r_fm.qat_matmul_dx(jg, jx, jw, jb, ja, fmt=rfmt, interpret=True)
+    _, mag = ref.qat_matmul_f64(x, w, beta, alpha, tfmt)
+    d = np.abs(framed_qat_matmul(x, w, beta, alpha, tfmt).double().numpy() - r_out)
+    assert np.all(d <= ELEM_RTOL * mag.numpy() + 1e-30)
+    _, dmag = ref.qat_matmul_dx_f64(g, x, w, beta, alpha, tfmt)
+    d = np.abs(framed_qat_matmul_dx(g, x, w, beta, alpha, tfmt).double().numpy()
+               - np.asarray(r_gx))
+    assert np.all(d <= ELEM_RTOL * dmag.numpy() + 1e-30)
