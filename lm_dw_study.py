@@ -1,0 +1,211 @@
+#!/usr/bin/env python3
+"""How B11 ``qat_matmul_dw``'s errors show in the federated LM cell, on the card.
+
+Run from the repository root:  python3 lm_dw_study.py
+
+The tensor-core dw is held to a bar against the f64 product (``ref.within_bar``),
+not to its twin's bits, so the cell trains to other losses than with the twin.
+This script measures what that difference is made of, on full-width
+TinyLlama-1.1B (``repro_torch.bench.fed_lm``'s cell):
+
+1. Every dw call of one local step (client 0's first batch, 4 x 64 tokens),
+   captured and run again through the kernel, its twin and the f64 product
+   (``ref.qat_matmul_dw_f64``): the bar; elements nonzero where the masked f64
+   product is zero (``ref.stray_nonzeros``; there must be none); zeros that
+   differ from the twin's; the signed error ``sign(ref64) (gw - ref64) / mag``
+   averaged over the elements (negative: toward zero) and the share of
+   elements the kernel shrinks less the share it grows; the RMS of ``(gw -
+   ref64) / mag``; and g_alpha against its f64 sum, relative to the sum of the
+   magnitudes of its terms, beside how far those terms cancel (their magnitude
+   sum over ``|g_alpha|``) and the kernel's distance from the twin's g_alpha
+   relative to the twin's.
+2. The cell's two rounds (the mean local loss of each) with dw as shipped
+   (twice: the cell is deterministic), with the exact product (f64, rounded
+   once to f32; g_alpha in f64), with 1e-7 relative noise on the exact and on
+   the kernel's gw, with additive noise of the kernel's own RMS error times
+   the magnitude product on the exact one, with the exact one moved toward
+   zero by the kernel's mean signed error, and with the twin (slow: an
+   ascending loop over M a call). The spread of the runs other than the
+   kernel's is printed beside the kernel's distance from them.
+
+Exits non-zero without a card, if a dw call of the step misses the bar or
+puts a nonzero where the masked f64 product is zero. About 9 minutes on an
+H100 (the twin's run a quarter of it) and 60 GB of device memory.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ARCH = "tinyllama_1_1b"
+ROUNDS = 2
+NOISE = 1e-7          # relative size of the multiplicative noise
+SEEDS = 3             # seeds of the noise on the exact product
+KERNEL_SEEDS = 2      # seeds of the noise on the kernel's product
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("lm_dw_study: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import configs, tree
+    from repro_torch.bench import fed_lm
+    from repro_torch.core.fp8 import E4M3
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import fp8_matmul as FM
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import registry
+
+    dev = resolve_device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    kernel = FM.qat_matmul_dw
+    twin = R.qat_matmul_dw
+
+    def terms(g, x, w, beta, alpha, fmt):
+        """``(v64, route)``: the unmasked f64 product and g_alpha's route."""
+        v64 = R.quant_det(x, beta, fmt).double().t() @ g.double()
+        a = torch.clamp(alpha.reshape(()).float(), min=1e-12)
+        return v64, R._ste(w, a, torch.ones_like(w), fmt)[1].double()
+
+    def exact(g, x, w, beta, alpha, fmt=E4M3):
+        v64, route = terms(g, x, w, beta, alpha, fmt)
+        a = torch.clamp(alpha.reshape(()).float(), min=1e-12)
+        return (v64 * (w.abs() <= a)).float(), (v64 * route).sum().float()
+
+    # 1. every dw call of one full-width local step
+    cfg = configs.get(ARCH)
+    model = registry.get_model(cfg)
+    params = model.init(0, device=dev)
+    xs, ys = fed_lm.client_data(1, 1, 64, cfg.vocab)
+    names = [n for n, _ in tree.flatten(params)]
+    leaves = [t.detach().requires_grad_() for t in tree.leaves(params)]
+    calls = []
+
+    def capture(g, x, w, beta, alpha, fmt=E4M3):
+        calls.append((g.clone(), x.clone(), w, beta.clone(), alpha.clone(), fmt))
+        return kernel(g, x, w, beta, alpha, fmt)
+    FM.qat_matmul_dw = capture
+    try:
+        loss = model.train_loss(tree.unflatten(names, leaves),
+                                {"tokens": xs[0, :4].to(dev), "labels": ys[0, :4].to(dev)},
+                                QATConfig())
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        FM.qat_matmul_dw = kernel
+    del loss, leaves, params
+    rows = {}
+    for g, x, w, beta, alpha, fmt in calls:
+        r64, mag = R.qat_matmul_dw_f64(g, x, w, beta, alpha, fmt)
+        v64, route = terms(g, x, w, beta, alpha, fmt)
+        ga64 = float((v64 * route).sum())
+        gmag = float((v64 * route).abs().sum())
+        outs = {"kernel": kernel(g, x, w, beta, alpha, fmt), "twin": twin(g, x, w, beta, alpha, fmt)}
+        e_t = R.product_error(outs["twin"][0], r64, mag)
+        on = (mag > 0) & (r64 != 0)
+        for name, (gw, ga) in outs.items():
+            d = (gw.double() - r64)[on] / mag[on]
+            e = R.product_error(gw, r64, mag)
+            ref_abs, out_abs = r64.abs()[on], gw.double().abs()[on]
+            row = rows.setdefault((name, tuple(x.shape) + (w.shape[1],)), {
+                "calls": 0, "off_bar": 0, "ratio": 0.0, "stray": 0, "zeros": 0, "signed": 0.0,
+                "n": 0, "shrink": 0, "sq": 0.0, "ga_mag": 0.0, "cancel": 0.0, "ga_twin": 0.0})
+            row["calls"] += 1
+            row["off_bar"] += 0 if R.within_bar(e, e_t) else 1
+            row["ratio"] = max(row["ratio"], e / max(e_t, R.BAR_FLOOR))
+            row["stray"] += R.stray_nonzeros(gw, r64)
+            row["zeros"] += int(((gw == 0) != (outs["twin"][0] == 0)).sum())
+            row["signed"] += float((torch.sign(r64[on]) * (gw.double()[on] - r64[on])
+                                    / mag[on]).sum())
+            row["n"] += int(on.sum())
+            row["shrink"] += int((out_abs < ref_abs).sum()) - int((out_abs > ref_abs).sum())
+            row["sq"] += float(d.pow(2).sum())
+            row["ga_mag"] = max(row["ga_mag"], abs(float(ga) - ga64) / max(gmag, 1e-300))
+            row["cancel"] = max(row["cancel"], gmag / max(abs(ga64), 1e-300))
+            row["ga_twin"] = max(row["ga_twin"], abs(float(ga) - float(outs["twin"][1]))
+                                 / max(abs(float(outs["twin"][1])), 1e-30))
+        del r64, mag, v64, route, outs
+    del calls
+    total = {}
+    for (name, shape), row in sorted(rows.items()):
+        t = total.setdefault(name, dict.fromkeys(row, 0.0))
+        for key, val in row.items():
+            t[key] = max(t[key], val) if key in ("ratio", "ga_mag", "cancel", "ga_twin") \
+                else t[key] + val
+        print(f"[step] {name} {shape}: " + _summary(row))
+    for name, t in total.items():
+        print(f"[step] {name}, all calls: " + _summary(t))
+    k = total["kernel"]
+    ok = k["off_bar"] == 0 and k["stray"] == 0
+    sigma = (k["sq"] / max(k["n"], 1)) ** 0.5
+    bias = k["signed"] / max(k["n"], 1)
+
+    # 2. the cell's losses under each dw
+    def with_noise(dw, seed, additive):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def noisy(g, x, w, beta, alpha, fmt=E4M3):
+            gw, ga = dw(g, x, w, beta, alpha, fmt)
+            z = torch.randn(gw.shape, generator=gen, device=dev)
+            if not additive:
+                return gw * (1.0 + NOISE * z), ga
+            mag = R.qat_matmul_dw_f64(g, x, w, beta, alpha, fmt)[1]
+            return (gw.double() + sigma * mag * z).float(), ga
+        return noisy
+
+    def shifted(g, x, w, beta, alpha, fmt=E4M3):
+        gw, ga = exact(g, x, w, beta, alpha, fmt)
+        mag = R.qat_matmul_dw_f64(g, x, w, beta, alpha, fmt)[1]
+        return (gw.double() + bias * mag * torch.sign(gw.double())).float(), ga
+
+    runs = [("kernel", kernel), ("kernel again", kernel), ("exact", exact)]
+    runs += [(f"exact x (1 + {NOISE:g} N), seed {s}", with_noise(exact, s, False))
+             for s in range(SEEDS)]
+    runs += [(f"kernel x (1 + {NOISE:g} N), seed {s}", with_noise(kernel, s, False))
+             for s in range(KERNEL_SEEDS)]
+    runs += [(f"exact + {sigma:.3g} mag N (the kernel's RMS error), seed {s}",
+              with_noise(exact, s, True)) for s in range(KERNEL_SEEDS)]
+    runs += [(f"exact + {bias:.3g} mag sign (the kernel's mean signed error)", shifted),
+             ("twin", twin)]
+    losses = {}
+    for label, dw in runs:
+        t0 = time.perf_counter()
+        FM.qat_matmul_dw = dw
+        try:
+            out = fed_lm.run(arch=ARCH, rounds=ROUNDS, device=dev, log=lambda s: None)
+        finally:
+            FM.qat_matmul_dw = kernel
+        losses[label] = [r["local_loss"] for r in out]
+        torch.cuda.empty_cache()
+        print(f"[loss] dw {label}: " + " -> ".join(f"{v:.6f}" for v in losses[label])
+              + f" ({time.perf_counter() - t0:.1f} s)")
+    ok = ok and losses["kernel"] == losses["kernel again"]
+    for r in range(ROUNDS):
+        others = [v[r] for lab, v in losses.items() if not lab.startswith("kernel")]
+        lo, hi, ex, kv = min(others), max(others), losses["exact"][r], losses["kernel"][r]
+        print(f"[loss] round {r + 1}: runs without the kernel's product span {lo:.6f}-{hi:.6f} "
+              f"({(hi - lo) / ex:.3g} of the exact run's {ex:.6f}); the kernel's {kv:.6f} is "
+              f"{(kv - ex) / ex:+.3g} from it and {max(kv - hi, lo - kv, 0.0) / ex:.3g} outside "
+              "that span")
+    print(f"lm_dw_study: {'ok' if ok else 'FAILED'}")
+    return 0 if ok else 1
+
+
+def _summary(row) -> str:
+    n = max(row["n"], 1)
+    return (f"{row['calls']:.0f} calls, {row['off_bar']:.0f} off the bar (worst "
+            f"{row['ratio']:.3g}x the twin's error or 2^-20), {row['stray']:.0f} stray nonzeros, "
+            f"{row['zeros']:.0f} zeros unlike the twin's; mean signed error "
+            f"{row['signed'] / n:.3g} of mag, net shrink share {row['shrink'] / n:.3g} (elements "
+            f"it shrinks less those it grows), RMS error {(row['sq'] / n) ** 0.5:.3g} of mag; g_alpha "
+            f"within {row['ga_mag']:.3g} of the f64 sum's term magnitudes (terms cancel up to "
+            f"{row['cancel']:.3g}x), {row['ga_twin']:.3g} from the twin's relative to it")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,12 +12,13 @@ x is ``(M, K)``, w ``(K, N)`` and the cotangent g ``(M, N)``, all f32 and
 contiguous; beta and alpha hold one f32 each (a 0-dim tensor or a ``(1,
 1)`` slice of a stacked clip). Outputs are f32; the clip cotangents are
 0-dim. A tensor on the CPU takes the twin in ``kernels.ref``; a CUDA tensor
-launches the kernels. B10 and dx run on bf16 tensor cores over exact frames
-of the quantized operands (and a three-way bf16 split of g), their
-reduction split across blocks into a scratch buffer that the wrapper
-allocates: they hold the twin's codes, not its f32 sum order, and are
-bounded against the f64 product (``ref.qat_matmul_f64``). dw sums in the
-twin's order and equals it bitwise.
+launches the kernels. All three run on bf16 tensor cores over exact frames
+of the quantized operands (and a three-way bf16 split of g), with a scratch
+buffer that the wrapper allocates: B10's and dx's reduction is split across
+blocks into it, dw keeps its tables and clip partials there and masks and
+routes its product in the same kernel. They hold the twin's codes, not its
+f32 sum order, and are bounded against the f64 product
+(``ref.qat_matmul_f64``, ``qat_matmul_dx_f64``, ``qat_matmul_dw_f64``).
 """
 from __future__ import annotations
 
@@ -50,13 +51,14 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
     return m, k, n
 
 
-_SCRATCH: dict = {}   # (dx, M, K, N): f32 of the split partials the kernels take
+_SCRATCH: dict = {}   # (op, M, K, N): f32 of the scratch the kernels take
+_OPS = {"qat_matmul": 0, "qat_matmul_dx": 1, "qat_matmul_dw": 2}
 
 
-def _scratch(lib, dx: int, m: int, k: int, n: int, device) -> torch.Tensor:
-    key = (dx, m, k, n)
+def _scratch(lib, op: int, m: int, k: int, n: int, device) -> torch.Tensor:
+    key = (op, m, k, n)
     if key not in _SCRATCH:
-        _SCRATCH[key] = int(lib.repro_qat_matmul_scratch(dx, m, k, n))
+        _SCRATCH[key] = int(lib.repro_qat_matmul_scratch(op, m, k, n))
     return torch.empty(_SCRATCH[key], dtype=torch.float32, device=device)
 
 
@@ -68,7 +70,7 @@ def qat_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
     m, k, n = _check_operands(x, w, beta, alpha)
     lib = load()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    scratch = _scratch(lib, 0, m, k, n, x.device)
+    scratch = _scratch(lib, _OPS["qat_matmul"], m, k, n, x.device)
     rc = lib.repro_qat_matmul(x.data_ptr(), w.data_ptr(), beta.data_ptr(),
                               alpha.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, k, n,
                               *_fmt_args(fmt), _stream())
@@ -80,11 +82,7 @@ def _backward(name: str, out_shape: tuple, g, x, w, beta, alpha, fmt):
     m, k, n = _check_operands(x, w, beta, alpha, g)
     lib = load()
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
-    if name == "qat_matmul_dx":
-        scratch = _scratch(lib, 1, m, k, n, x.device)
-    else:
-        scratch = torch.empty(lib.repro_qat_matmul_blocks(*out_shape), dtype=torch.float32,
-                              device=x.device)
+    scratch = _scratch(lib, _OPS[name], m, k, n, x.device)
     gclip = torch.empty((), dtype=torch.float32, device=x.device)
     rc = getattr(lib, f"repro_{name}")(
         g.data_ptr(), x.data_ptr(), w.data_ptr(), beta.data_ptr(), alpha.data_ptr(),

@@ -424,14 +424,13 @@ def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: i
 # ---------------------------------------------------------------------------
 #
 # Each output is summed over the reduction index in ascending order, one
-# product at a time, mul and add rounded separately: dw's kernel order, so
-# that twin is bitwise equal to it on the same card (``torch.matmul`` sums in
-# another order). The B10 and dx kernels sum bf16 frames on tensor cores
-# over a split reduction: they share the twins' codes, and each is held
-# against the f64 product of the twin's quantized operands
-# (``qat_matmul_f64``, ``qat_matmul_dx_f64``) at ``within_bar``. The
-# backward's epilogue is ``quant_det_bwd`` of the forward operand, with the
-# summed product as its cotangent.
+# product at a time, mul and add rounded separately (``torch.matmul`` sums
+# in another order). The kernels sum bf16 frames on tensor cores: they
+# share the twins' codes, and each is held against the f64 product of the
+# twin's quantized operands (``qat_matmul_f64``, ``qat_matmul_dx_f64``,
+# ``qat_matmul_dw_f64``) at ``within_bar``. The backward's epilogue is
+# ``quant_det_bwd`` of the forward operand, with the summed product as its
+# cotangent.
 
 
 def qat_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
@@ -468,7 +467,7 @@ def qat_matmul_dw(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return quant_det_bwd(w, alpha, acc, fmt)
 
 
-# The staging arithmetic of the B10 / dx tensor-core kernels, and the bar
+# The staging arithmetic of the B10 / B11 tensor-core kernels, and the bar
 # they are held to. Nothing on the main path calls these: they are the
 # kernels' arithmetic written out for the tests and ``chip_smoke.py``.
 
@@ -522,6 +521,17 @@ def qat_matmul_dx_f64(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return (g64 @ wq.t()) * inside, (g64.abs() @ wq.abs().t()) * inside
 
 
+def qat_matmul_dw_f64(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                      beta: torch.Tensor, alpha: torch.Tensor, fmt: FP8Format = E4M3):
+    """``(ref64, mag)``: ``xq^T @ g`` and ``|xq|^T @ |g|`` in f64, both masked
+    by ``1{|w| <= alpha}`` (alpha floored as the kernels floor it)."""
+    xq = quant_det(x, beta, fmt).double()
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    inside = (w.abs() <= a).double()
+    g64 = g.double()
+    return (xq.t() @ g64) * inside, (xq.abs().t() @ g64.abs()) * inside
+
+
 def product_error(out: torch.Tensor, ref64: torch.Tensor, mag: torch.Tensor) -> float:
     """The largest ``|out - ref64| / mag`` over the elements. Where ``mag ==
     0`` every term is 0: there ``|out - ref64|`` itself counts, 0 for a right
@@ -531,6 +541,14 @@ def product_error(out: torch.Tensor, ref64: torch.Tensor, mag: torch.Tensor) -> 
     return float(err.max()) if err.numel() else 0.0
 
 
+def stray_nonzeros(out: torch.Tensor, ref64: torch.Tensor) -> int:
+    """Elements of ``out`` that are nonzero where the masked f64 product
+    ``ref64`` is zero: every masked element, and every element whose terms
+    are all zero. A right dx or dw has none; a sum that cancels to zero on
+    one side only is not counted, so this does not compare with a twin."""
+    return int(((out != 0) & (ref64 == 0)).sum())
+
+
 def within_bar(err_kernel: float, err_twin: float) -> bool:
-    """The B10 / dx contract: no less accurate than the twin, up to 4x or 16 ULP."""
+    """The B10 / B11 contract: no less accurate than the twin, up to 4x or 16 ULP."""
     return err_kernel <= max(BAR_FACTOR * err_twin, BAR_FLOOR)

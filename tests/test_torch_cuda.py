@@ -9,11 +9,12 @@ run on a machine that has only PyTorch:
 Tolerance: bitwise, except the scalar clip cotangent at relative 1e-5 (the
 kernel reduces per-block partial sums in a fixed order, the twin with
 ``torch.sum``; the cotangent is drawn with the sign of x, so the sum does
-not cancel and a relative error measures the kernel), and B10 / B11 dx,
-which sum bf16 frames on tensor cores over a split reduction: per element
-``|out - ref64| / mag`` against the f64 product of the twin's quantized
-operands, at most 4x the twin's own worst or 2^-20 (``ref.within_bar``), and
-two calls bitwise equal.
+not cancel and a relative error measures the kernel), and B10 / B11 (dx and
+dw), which sum bf16 frames on tensor cores: per element ``|out - ref64| /
+mag`` against the f64 product of the twin's quantized operands, at most 4x
+the twin's own worst or 2^-20 (``ref.within_bar``), nonzero only where the
+masked f64 product is (``ref.stray_nonzeros``), and two
+calls bitwise equal.
 """
 import numpy as np
 import pytest
@@ -388,31 +389,39 @@ def _matmul_case(m, k, n, seed, dev):
 
 
 QAT_SHAPES = [(77, 130, 200), (1, 1, 1), (64, 16, 64), (256, 2048, 256), (32, 2048, 1000),
-              (32, 2048, 32000), (128, 2048, 1000), (13, 64, 40)]
+              (32, 2048, 32000), (128, 2048, 1000), (13, 64, 40), (45, 203, 331),
+              (1024, 2048, 256), (1100, 300, 520)]
 
 
-def _bar(kernel_out, twin_out, ref64, mag, label):
+def _bar(kernel_out, twin_out, ref64, mag, label, masked=False):
     e_k = ref.product_error(kernel_out, ref64, mag)
     e_t = ref.product_error(twin_out, ref64, mag)
     assert ref.within_bar(e_k, e_t), f"{label}: error {e_k:.3g}, twin's {e_t:.3g}"
+    if masked:   # nonzero only where the masked f64 product is
+        assert ref.stray_nonzeros(kernel_out, ref64) == 0, f"{label} mask"
 
 
 @pytest.mark.parametrize("shape", QAT_SHAPES)
 def test_qat_matmul_kernels_bitwise_against_twins(dev, shape):
-    """dw bitwise against its twin; B10 and dx at the bar against the f64
-    product (a tensor-core sum cannot equal an ascending f32 loop); every
-    clip cotangent within 1e-5 of the twin's."""
+    """B10, dx and dw at the bar against the f64 product (a tensor-core sum
+    cannot equal an ascending f32 loop), dx's and dw's masked elements zero
+    (nonzero only where the masked f64 product is); every
+    clip cotangent within 1e-5 of the twin's. (45, 203, 331) is ragged on
+    every axis (odd N: dw's scalar epilogue); (1024, 2048, 256) and (256,
+    2048, 256) are wk / wv's tile-starved (K, N) at the trainer's and the
+    federated cell's M; (1100, 300, 520) takes dw past M = 1024, where its
+    chains are promoted."""
     from repro_torch.kernels import fp8_matmul
     x, w, beta, alpha, g = _matmul_case(*shape, 21, dev)
     _bar(fp8_matmul.qat_matmul(x, w, beta, alpha), ref.qat_matmul(x, w, beta, alpha),
          *ref.qat_matmul_f64(x, w, beta, alpha), "qat_matmul")
     got, gc = fp8_matmul.qat_matmul_dx(g, x, w, beta, alpha)
     want, wc = ref.qat_matmul_dx(g, x, w, beta, alpha)
-    _bar(got, want, *ref.qat_matmul_dx_f64(g, x, w, beta, alpha), "qat_matmul_dx")
+    _bar(got, want, *ref.qat_matmul_dx_f64(g, x, w, beta, alpha), "qat_matmul_dx", True)
     np.testing.assert_allclose(float(gc), float(wc), rtol=1e-5, err_msg="qat_matmul_dx")
     got, gc = fp8_matmul.qat_matmul_dw(g, x, w, beta, alpha)
     want, wc = ref.qat_matmul_dw(g, x, w, beta, alpha)
-    assert torch.equal(got, want), "qat_matmul_dw"
+    _bar(got, want, *ref.qat_matmul_dw_f64(g, x, w, beta, alpha), "qat_matmul_dw", True)
     np.testing.assert_allclose(float(gc), float(wc), rtol=1e-5, err_msg="qat_matmul_dw")
 
 
@@ -456,7 +465,12 @@ def test_qat_matmul_codes_at_the_exponent_steps(dev, fmt, alpha):
     """The frames the tensor-core kernels stage carry quant_det's codes at
     every exponent step: dx with g the identity returns w's grid values,
     B10 with w the identity x's, each within 2^-20 of the twin's value
-    (a wrong code is off by 1/16 or more)."""
+    (a wrong code is off by 1/16 or more). dw's epilogue at w's clip sees
+    the same values, one every 1/8 binade below alpha, and +-alpha, one ULP
+    past it and beyond: x the identity at beta 1, so gw is Q(1) g masked at
+    alpha; its mask exact, gw within 2^-20 of the twin's, and g_alpha within
+    1e-5, with g signed like each element's route term and scaled by 1 / s,
+    so that no term of the sum cancels or vanishes."""
     from repro_torch.kernels import fp8_matmul
     a = torch.tensor(alpha, device=dev)
     vals = _exponent_steps(a, fmt, dev)
@@ -473,6 +487,23 @@ def test_qat_matmul_codes_at_the_exponent_steps(dev, fmt, alpha):
     out = fp8_matmul.qat_matmul(w, eye, a, one, fmt)
     want = ref.quant_det(w, a, fmt) * ref.quant_det(eye, one, fmt)[0, 0]
     assert float(((out - want).abs() / want.abs().clamp_min(1e-30)).max()) <= 2.0 ** -20
+
+    edge = torch.stack([a, torch.nextafter(a, a * 2), a * 1.25, a * 3])
+    spread = a * torch.exp2(-torch.arange(1, 8 * 2 ** fmt.exp, device=dev) / 8.0 - 1 / 64)
+    wd = torch.cat([vals, edge, -edge, spread, -spread])
+    k2 = -(-wd.numel() // n)
+    w2 = torch.zeros(k2 * n, device=dev)
+    w2[:wd.numel()] = wd
+    w2 = w2.reshape(k2, n)
+    _, route = ref._ste(w2, a, torch.ones_like(w2), fmt)
+    _, s = ref._scale_p(ref._clip(w2, a), ref._bias(a, fmt), fmt)
+    g2 = torch.where(route < 0, -1.0, 1.0) / s
+    x2 = torch.eye(k2, device=dev)
+    gw, ga = fp8_matmul.qat_matmul_dw(g2, x2, w2, one, a, fmt)
+    want, wa = ref.qat_matmul_dw(g2, x2, w2, one, a, fmt)
+    assert torch.equal(gw == 0, w2.abs() > a)
+    assert float(((gw - want).abs() / want.abs().clamp_min(1e-30)).max()) <= 2.0 ** -20
+    np.testing.assert_allclose(float(ga), float(wa), rtol=1e-5)
 
 
 def test_qat_matmul_dispatch_launches_the_kernels_never_the_twins(dev, monkeypatch):
@@ -493,7 +524,8 @@ def test_qat_matmul_dispatch_launches_the_kernels_never_the_twins(dev, monkeypat
     assert b.grad.shape == () and a.grad.shape == (1, 1)
     monkeypatch.undo()
     want, _ = ref.qat_matmul_dx(g, x.detach(), w.detach(), beta, alpha)
-    _bar(x.grad, want, *ref.qat_matmul_dx_f64(g, x.detach(), w.detach(), beta, alpha), "x.grad")
+    _bar(x.grad, want, *ref.qat_matmul_dx_f64(g, x.detach(), w.detach(), beta, alpha), "x.grad",
+         True)
     with pytest.raises(ValueError, match="contiguous"):
         fp8_matmul.qat_matmul(x.detach().t().contiguous().t(), w.detach(), beta, alpha)
     with pytest.raises(ValueError, match="one value"):

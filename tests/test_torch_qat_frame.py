@@ -1,4 +1,4 @@
-"""The staging arithmetic of the B10 / dx tensor-core kernels
+"""The staging arithmetic of the B10 / B11 (dx, dw) tensor-core kernels
 (``csrc/qat_matmul.cu``), on the CPU: ``ref.split_bf16x3`` (the three-way
 bf16 split of the f32 cotangent), ``ref.quant_det_frame`` (a quantized
 operand as its integer code times a power of two, exact in bf16, and the f32
@@ -9,7 +9,7 @@ cuda.py``): per element, ``|out - ref64| / mag``, with ``ref64`` the f64
 product of the twin's quantized operands and ``mag`` that of their absolute
 values, at most ``max(4 x the twin's worst, 2^-20)``. Here the products are
 summed in f64 over the bf16 pieces and rounded once to f32, then scaled in
-f32 as the kernels' second pass does: what remains of the contract without
+f32 as the kernels' epilogues do: what remains of the contract without
 the card's summation order. The reference's interpret-mode Pallas kernels
 (``repro.kernels.fp8_matmul``) are held to the same framed products within
 1e-5 of the magnitude sum, as ``test_torch_qat_matmul.py`` holds the twins.
@@ -73,6 +73,35 @@ def framed_qat_matmul_dx(g, x, w, beta, alpha, fmt, pieces=3):
     return (acc * sw) * (x.abs() <= beta.reshape(())).float()
 
 
+def framed_qat_matmul_dw(g, x, w, beta, alpha, fmt, pieces=3):
+    """dw as its kernel stages it: x's frame transposed against the first
+    ``pieces`` of g's split, times s1(beta), masked at w's clip."""
+    fx, sx = ref.quant_det_frame(x, beta, fmt)
+    g3 = sum(p.double() for p in ref.split_bf16x3(g)[:pieces])
+    acc = (fx.double().t() @ g3).float()
+    return (acc * sx) * (w.abs() <= alpha.reshape(())).float()
+
+
+def _framed(kernel, x, w, beta, alpha, g, fmt, pieces=3):
+    """``(framed, twin, ref64, mag)`` of one product: its framed staging,
+    the twin's output and the f64 product with its magnitudes."""
+    if kernel == "qat_matmul":
+        return (framed_qat_matmul(x, w, beta, alpha, fmt),
+                ref.qat_matmul(x, w, beta, alpha, fmt), *ref.qat_matmul_f64(x, w, beta, alpha, fmt))
+    staged = {"qat_matmul_dx": framed_qat_matmul_dx, "qat_matmul_dw": framed_qat_matmul_dw}
+    return (staged[kernel](g, x, w, beta, alpha, fmt, pieces),
+            getattr(ref, kernel)(g, x, w, beta, alpha, fmt)[0],
+            *getattr(ref, f"{kernel}_f64")(g, x, w, beta, alpha, fmt))
+
+
+# the B10 + dx cases keep their ids; dw's are added beside them
+FMT_KERNELS = pytest.mark.parametrize(
+    "fmt,kernels",
+    [("e4m3", ("qat_matmul", "qat_matmul_dx")), ("e5m2", ("qat_matmul", "qat_matmul_dx")),
+     ("e4m3", ("qat_matmul_dw",)), ("e5m2", ("qat_matmul_dw",))],
+    ids=["e4m3", "e5m2", "e4m3-dw", "e5m2-dw"])
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_split_reconstructs_f32_exactly_above_the_subnormal_range(seed):
     rng = np.random.default_rng(seed)
@@ -121,31 +150,33 @@ def test_frame_is_the_code_times_a_power_of_two(fmt, alpha):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
-def test_framed_products_meet_the_bar_against_f64(shape, fmt):
+@FMT_KERNELS
+def test_framed_products_meet_the_bar_against_f64(shape, fmt, kernels):
     _, tfmt = FMTS[fmt]
     x, w, beta, alpha, g = _inputs(*shape)
-    r64, mag = ref.qat_matmul_f64(x, w, beta, alpha, tfmt)
-    e_twin = ref.product_error(ref.qat_matmul(x, w, beta, alpha, tfmt), r64, mag)
-    e_frame = ref.product_error(framed_qat_matmul(x, w, beta, alpha, tfmt), r64, mag)
-    assert ref.within_bar(e_frame, e_twin), (e_frame, e_twin)
-
-    d64, dmag = ref.qat_matmul_dx_f64(g, x, w, beta, alpha, tfmt)
-    gx_twin, _ = ref.qat_matmul_dx(g, x, w, beta, alpha, tfmt)
-    e_twin = ref.product_error(gx_twin, d64, dmag)
-    e_frame = ref.product_error(framed_qat_matmul_dx(g, x, w, beta, alpha, tfmt), d64, dmag)
-    assert ref.within_bar(e_frame, e_twin), (e_frame, e_twin)
+    for kernel in kernels:
+        framed, twin, r64, mag = _framed(kernel, x, w, beta, alpha, g, tfmt)
+        e_twin = ref.product_error(twin, r64, mag)
+        e_frame = ref.product_error(framed, r64, mag)
+        assert ref.within_bar(e_frame, e_twin), (kernel, e_frame, e_twin)
+        if kernel != "qat_matmul":   # masked elements zero, and no stray nonzero
+            assert ref.stray_nonzeros(framed, r64) == 0, kernel
 
 
-@pytest.mark.parametrize("shape", [(77, 130, 200), (33, 64, 129), (32, 256, 1000)])
-def test_a_bf16_cotangent_fails_the_bar(shape):
+BF16_SHAPES = [(77, 130, 200), (33, 64, 129), (32, 256, 1000)]
+
+
+@pytest.mark.parametrize(
+    "shape,kernel",
+    [(s, "qat_matmul_dx") for s in BF16_SHAPES] + [(s, "qat_matmul_dw") for s in BF16_SHAPES],
+    ids=[f"shape{i}" for i in range(3)] + [f"shape{i}-dw" for i in range(3)])
+def test_a_bf16_cotangent_fails_the_bar(shape, kernel):
     """The bar is tight enough to see one rounding of g: the hi piece alone
-    (g cast to bf16) misses it."""
+    (g cast to bf16) misses it, for dx and for dw."""
     x, w, beta, alpha, g = _inputs(*shape, seed=5)
-    d64, dmag = ref.qat_matmul_dx_f64(g, x, w, beta, alpha)
-    e_twin = ref.product_error(ref.qat_matmul_dx(g, x, w, beta, alpha)[0], d64, dmag)
-    gx = framed_qat_matmul_dx(g, x, w, beta, alpha, E4M3, pieces=1)
-    assert not ref.within_bar(ref.product_error(gx, d64, dmag), e_twin)
+    out, twin, r64, mag = _framed(kernel, x, w, beta, alpha, g, E4M3, pieces=1)
+    assert not ref.within_bar(ref.product_error(out, r64, mag),
+                              ref.product_error(twin, r64, mag))
 
 
 def test_product_error_and_bar():
@@ -157,20 +188,21 @@ def test_product_error_and_bar():
         pytest.approx(1e-3)   # an output where every term is 0 counts absolutely
     assert ref.within_bar(2.0 ** -20, 0.0) and not ref.within_bar(2.0 ** -19, 2.0 ** -22)
     assert ref.within_bar(4e-6, 1e-6) and not ref.within_bar(4.1e-6, 1e-6)
+    assert ref.stray_nonzeros(out, ref64) == 0
+    assert ref.stray_nonzeros(torch.tensor([1.0, 0.0, -1e-30, 0.0]), ref64) == 1
 
 
 @pytest.mark.parametrize("shape", [(77, 130, 200), (33, 64, 129)])
-@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
-def test_framed_products_match_reference_interpret_kernels(shape, fmt):
+@FMT_KERNELS
+def test_framed_products_match_reference_interpret_kernels(shape, fmt, kernels):
     rfmt, tfmt = FMTS[fmt]
     x, w, beta, alpha, g = _inputs(*shape, seed=1)
     jx, jw, jb, ja, jg = (jnp.asarray(t.numpy()) for t in (x, w, beta, alpha, g))
-    r_out = np.asarray(r_fm.qat_matmul(jx, jw, jb, ja, fmt=rfmt, interpret=True))
-    r_gx, _ = r_fm.qat_matmul_dx(jg, jx, jw, jb, ja, fmt=rfmt, interpret=True)
-    _, mag = ref.qat_matmul_f64(x, w, beta, alpha, tfmt)
-    d = np.abs(framed_qat_matmul(x, w, beta, alpha, tfmt).double().numpy() - r_out)
-    assert np.all(d <= ELEM_RTOL * mag.numpy() + 1e-30)
-    _, dmag = ref.qat_matmul_dx_f64(g, x, w, beta, alpha, tfmt)
-    d = np.abs(framed_qat_matmul_dx(g, x, w, beta, alpha, tfmt).double().numpy()
-               - np.asarray(r_gx))
-    assert np.all(d <= ELEM_RTOL * dmag.numpy() + 1e-30)
+    for kernel in kernels:
+        if kernel == "qat_matmul":
+            r_out = r_fm.qat_matmul(jx, jw, jb, ja, fmt=rfmt, interpret=True)
+        else:
+            r_out, _ = getattr(r_fm, kernel)(jg, jx, jw, jb, ja, fmt=rfmt, interpret=True)
+        framed, _, _, mag = _framed(kernel, x, w, beta, alpha, g, tfmt)
+        d = np.abs(framed.double().numpy() - np.asarray(r_out))
+        assert np.all(d <= ELEM_RTOL * mag.numpy() + 1e-30), kernel
