@@ -35,11 +35,14 @@ Phases, each fatal on failure (the script then exits non-zero):
    1e-5 with a cotangent signed like x. Then the rANS pair (B12
    ``rans_decode`` and the encode, ``rans_kernel_phase``) on the real code
    streams of the format MLP and of LeNet (E4M3 and FP4, plain and delta,
-   each against its table): buffers, states, lengths and symbols bitwise
-   against the twins; at 8191 x 1024 symbols decode(encode(s)) == s. Prints
-   each kernel's median time (CUDA events) beside its plain twin's and its
-   bound (bytes over 3.35 TB/s, or operations over the card's f32 rate, the
-   larger).
+   each against its table), on cohorts of three real uplink streams in one
+   launch each way and on corrupted streams whose lanes read clipped
+   positions: buffers, states, lengths and symbols bitwise against the
+   twins; at 8191 x 1024 symbols decode(encode(s)) == s. Prints each
+   kernel's median time (CUDA events) beside its plain twin's and its bound
+   (bytes over 3.35 TB/s, or operations over the card's f32 rate, the
+   larger; for the rANS pair also the chain bound, rows times one row's
+   dependent chain timed alone).
 3. the card against the CPU twins: one small federated round with the same
    draws (``round_phase``; MLP uq, LeNet with weight QAT, LeNet with full
    QAT, MLP uq+, MLP rand-qat): exact bytes, params and loss within the
@@ -73,8 +76,10 @@ Phases, each fatal on failure (the script then exits non-zero):
    just after: its bytes per round must be the reference's integer (a
    pareto cell's bound; its measured bytes at most the bound with a rANS
    leg, equal without), the kernels of its codecs must launch (each rANS
-   kernel once per payload), the amax encodes must not launch where no leg
-   is delayed, nor the rANS pair where no leg is entropy-coded. One round
+   kernel exactly once an entropy-coded leg a round: the downlink's payload,
+   then the cohort's uplink payloads in one launch), the amax encodes must
+   not launch where no leg is delayed, nor the rANS pair where no leg is
+   entropy-coded. One round
    each of the FP4, the E4M3 delayed, the FP4 delayed and the ``fp4|ef+rans``
    LeNet cell is profiled, for the kernels' device time per launch.
 
@@ -88,8 +93,11 @@ Phases, each fatal on failure (the script then exits non-zero):
    4x the twin's own, or 2^-20), gx and gw nonzero only where that masked
    product is (every masked element zero), clip cotangents within GA_RTOL,
    each call bitwise equal to a second one; each timed beside its twin,
-   ``torch.matmul`` on the pre-quantized operands and its bound
-   (``lm_kernel_phase``, right after phase 2); one reduced-TinyLlama local
+   ``torch.matmul`` on the pre-quantized operands and its bound; then every
+   dx and dw call of one real full-width local step, its clip cotangent
+   within max(4x the twin's, 2^-20) of its terms' magnitude sum from the f64
+   one (``ref.clip_within_bar``) (``lm_kernel_phase``, right after phase
+   2); one reduced-TinyLlama local
    step on the card against the CPU
    twins (``lm_card_vs_cpu_phase``, after phase 3); then
    ``repro_torch.bench.fed_lm`` at the example's defaults for 2 rounds, the
@@ -109,8 +117,8 @@ Phases, each fatal on failure (the script then exits non-zero):
    (``trainer_kernel_phase``, after phase 7's kernels); a reduced-TinyLlama
    train step on the card against the CPU twins at opt_level 1, 0 and 2
    (``trainer_card_vs_cpu_phase``, after phase 3) and B9's only caller,
-   ``dispatch.fake_quant_amax_plane``, once on LeNet's plane
-   (``b9_path_phase``); then, last before phase 6, ``launch.train`` at the
+   ``dispatch.fake_quant_amax_plane``, once on LeNet's plane and once more
+   profiled (``b9_path_phase``); then, last before phase 6, ``launch.train`` at the
    reference's defaults (full-width TinyLlama-1.1B, batch 8 x 128, AdamW
    3e-4, opt_level 1) for 20 steps with the counters zeroed just before and
    read just after: one B7 forward and one backward a step, B1/B2 at every
@@ -552,6 +560,23 @@ def format_timing_cases(K, R, xt, col, key, codes4) -> dict:
     }
 
 
+def _rans_chain_us(freq, cum, s2s, enc) -> dict:
+    """The least time of one row of each rANS kernel: its dependent chain
+    alone (``rans.chain_probe``, one warp), timed with CUDA events at two
+    iteration counts, the difference over the difference in iterations (the
+    launch cancels)."""
+    from repro_torch.kernels import rans
+
+    out = {}
+    for mode in ("decode", "encode"):
+        ms = {}
+        for iters in (1 << 20, 1 << 21):
+            ms[iters] = time_ms(lambda: rans.chain_probe(mode, iters, freq, cum, s2s, enc),
+                                reps=3, iters=1, warmup=1)
+        out["rans_" + mode] = (ms[1 << 21] - ms[1 << 20]) * 1e3 / (1 << 20)
+    return out
+
+
 def rans_kernel_phase(dev) -> dict:
     """The rANS pair (B12 ``rans_decode`` and the encode) on real code
     streams: the init weights of the format ablation's MLP and of LeNet,
@@ -559,17 +584,25 @@ def rans_kernel_phase(dev) -> dict:
     and by their delta wires (the residual against a slightly moved copy,
     against the delta table): the kernel's buffer, states and lengths and
     the decoded symbols bitwise against the twins', and the decode equal to
-    the stream. At 8191 x 1024 symbols (524k rows a lane) the step-by-step
-    twin is too slow to run, so there the pair is held to decode(encode(s))
-    == s and timed only. Times (CUDA events) beside the twin's and the
-    bound: bytes moved (symbols, the table, the coded buffer, states and
-    lengths; the decode reads only the ``sum(lens)`` coded bytes it uses)
-    over 3.35 TB/s, or about 12 integer operations a symbol over the f32
-    rate, the larger. Neither bounds a lane's chain of ``steps`` dependent
-    iterations, which is what the times show."""
+    the stream. Then cohorts, one launch each way for three clients (the
+    weights moved by seeded noise), as the pareto cells' uplinks code them
+    (the MLP's four uplink inners; LeNet's ``fp4_e2m1_det``, its pareto
+    cell's EF uplink), each payload bitwise against the twins run one at a
+    time; and corrupted streams (bytes replaced, lengths cut below the
+    first byte or run past the last column, so lanes read at ``clip(rpos,
+    0, cols - 1)``), the decode against the twin. At 8191 x 1024 symbols
+    (524k rows a lane) the step-by-step twin is too slow to run, so there
+    the pair is held to decode(encode(s)) == s and timed only. Times (CUDA
+    events) beside the twin's and two bounds: bytes moved (symbols, the
+    table, the coded buffer, states and lengths; the decode reads only the
+    ``sum(lens)`` coded bytes it uses) over 3.35 TB/s, or about 12 integer
+    operations a symbol over the f32 rate, the larger (``bound_ms``); and
+    the chain bound, rows times one row's dependent chain timed alone
+    (``_rans_chain_us``), which is what bounds the pair."""
     from repro_torch import tree
     from repro_torch.bench import common
-    from repro_torch.core import codec, entropy, wire
+    from repro_torch.core import codec, wire
+    from repro_torch.kernels import fp8_quant as K
     from repro_torch.kernels import rans
     from repro_torch.kernels import ref as R
     from repro_torch.models import small
@@ -579,9 +612,13 @@ def rans_kernel_phase(dev) -> dict:
               "cifar10-lenet": common.make_model(common.TASKS["cifar10-lenet"], 0, dev)[0]}
     worst = dict.fromkeys(RANS_KERNELS, 0.0)
     streams = {}
+    cohorts = {}
+    g = torch.Generator().manual_seed(0)
     for mname, params in models.items():
         spec = wire.make_wire_spec(params)
         moved = tree.tree_map(lambda p: p * 0.98, params)
+        clients = [tree.tree_map(lambda p: p + 0.02 * torch.randn(p.shape, generator=g).to(dev)
+                                 * p.abs().max(), params) for _ in range(3)]
         for grid in ("e4m3", "fp4_e2m1"):
             for inner in (grid, "delta:" + grid):
                 rc = codec.get_codec("rans:" + inner)
@@ -589,6 +626,14 @@ def rans_kernel_phase(dev) -> dict:
                 syms = ic.encode(params, spec, key, ref=moved)["codes"].contiguous()
                 check(syms.numel() == ic.code_nbytes(spec), f"{mname} {inner}: stream size")
                 streams[(mname, inner)] = (syms, rc.table(dev))
+            ups = ("delta:" + grid, grid + "_det") if mname == "format-mlp" else \
+                (("fp4_e2m1_det",) if grid == "fp4_e2m1" else ())
+            for inner in ups:
+                rc = codec.get_codec("rans:" + inner)
+                cohorts[(mname, inner)] = (torch.stack([
+                    rc.inner.encode(c, spec, key, ref=params)["codes"] for c in clients]),
+                    rc.table(dev), rc.enc_table(dev))
+
     def diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
         """(values that differ, their largest absolute difference)."""
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
@@ -608,9 +653,46 @@ def rans_kernel_phase(dev) -> dict:
         check(torch.equal(out, syms), f"rans {mname} {inner}: decode(encode(s)) != s")
         print(f"[kernels] rans pair {mname} {inner}: {n} symbols, {rans.n_steps(n)} rows a "
               f"lane, coded {int(lens.sum())} bytes (bound {buf.numel()}): bitwise ok")
+    for (mname, inner), (syms, (freq, cum, s2s), enc) in cohorts.items():
+        P, n = syms.shape
+        before = dict(K.LAUNCHES)
+        buf, state, lens = rans.rans_encode_many(syms, freq, cum, enc)
+        out = rans.rans_decode_many(buf, state, lens, n, freq, cum, s2s)
+        check(all(K.LAUNCHES[k] == before[k] + 1 for k in RANS_KERNELS),
+              f"rans cohort {mname} {inner}: not one launch each way")
+        for i in range(P):
+            per = [diff(a, b) for a, b in zip((buf[i], state[i], lens[i]),
+                                              R.rans_encode(syms[i], freq, cum))]
+            worst["rans_encode"] = max(worst["rans_encode"], *(e for _, e in per))
+            check(sum(c for c, _ in per) == 0,
+                  f"rans_encode_many {mname} {inner} payload {i}: values differ")
+            bad, err = diff(out[i], R.rans_decode(buf[i], state[i], lens[i], n, freq, cum, s2s))
+            worst["rans_decode"] = max(worst["rans_decode"], err)
+            check(bad == 0, f"rans_decode_many {mname} {inner} payload {i}: {bad} differ")
+        check(torch.equal(out, syms), f"rans cohort {mname} {inner}: decode(encode(s)) != s")
+        print(f"[kernels] rans cohort {mname} {inner}: {P} uplinks of {n} symbols in one launch "
+              f"each way, coded {[int(v) for v in lens.sum(1)]} bytes: bitwise ok")
+    # corrupted payloads of LeNet's E4M3 stream: the decode against the twin
+    syms, (freq, cum, s2s) = streams[("cifar10-lenet", "e4m3")]
+    n = syms.numel()
+    buf, state, lens = rans.rans_encode(syms, freq, cum)
+    cols, step = buf.shape[1], torch.arange(rans.LANES, dtype=torch.int32, device=dev)
+    noisy = buf.clone()
+    noisy[:, ::7] = torch.randint(0, 256, noisy[:, ::7].shape, generator=g).to(
+        torch.uint8).to(dev)
+    for label, (b, ln) in {
+            "bytes replaced": (noisy, lens),
+            "lengths cut below byte 0": (buf, torch.clamp(lens - 40 * step - 1, min=0)),
+            "lengths past the last column": (buf, lens + cols // 2 + step)}.items():
+        out = rans.rans_decode(b, state, ln, n, freq, cum, s2s)
+        bad, err = diff(out, R.rans_decode(b, state, ln, n, freq, cum, s2s))
+        worst["rans_decode"] = max(worst["rans_decode"], err)
+        check(bad == 0, f"rans_decode corrupted ({label}): {bad} symbols differ from the twin")
+        print(f"[kernels] rans decode corrupted lenet e4m3 ({label}): bitwise the twin's "
+              f"({int((out != syms).sum())} of {n} symbols off the stream)")
     # the large stream, drawn from the E4M3 plain table (the matched case)
     freq, cum, s2s = codec.get_codec("rans:e4m3").table(dev)
-    g = torch.Generator().manual_seed(0)
+    enc = codec.get_codec("rans:e4m3").enc_table(dev)
     big = s2s.cpu()[torch.randint(0, rans.TAB, (LARGE[0] * LARGE[1],), generator=g)].to(
         torch.uint8).to(dev)
     buf, state, lens = rans.rans_encode(big, freq, cum)
@@ -619,37 +701,46 @@ def rans_kernel_phase(dev) -> dict:
     print(f"[kernels] rans pair random {big.numel()} symbols ({rans.n_steps(big.numel())} "
           f"rows a lane): decode(encode(s)) == s")
     synchronize()
+    chain_us = _rans_chain_us(freq, cum, s2s, enc)
+    print("[kernels] rans chains alone (one warp): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ns a row" for k, v in chain_us.items()))
 
     timings = {}
-    cases = (("main", streams[("format-mlp", "e4m3")][0], 3),
-             ("lenet", streams[("cifar10-lenet", "e4m3")][0], 1),
-             ("large", big, 0))
-    for label, syms, twin_reps in cases:
-        n, steps = syms.numel(), rans.n_steps(syms.numel())
-        buf, state, lens = rans.rans_encode(syms, freq, cum)
+    lenet_up, (uf, uc, us), uenc = cohorts[("cifar10-lenet", "fp4_e2m1_det")]
+    cases = (("main", streams[("format-mlp", "e4m3")][0][None], (freq, cum, s2s), enc, 3),
+             ("lenet", streams[("cifar10-lenet", "e4m3")][0][None], (freq, cum, s2s), enc, 1),
+             ("lenet cohort", lenet_up, (uf, uc, us), uenc, 0),
+             ("large", big[None], (freq, cum, s2s), enc, 0))
+    for label, syms, (tf, tc, ts), te, twin_reps in cases:
+        P, n = syms.shape
+        steps = rans.n_steps(n)
+        buf, state, lens = rans.rans_encode_many(syms, tf, tc, te)
         coded = int(lens.sum())
         table_bytes = 2 * 256 * 4
         runs = {
-            "rans_encode": (lambda: rans.rans_encode(syms, freq, cum),
-                            lambda: R.rans_encode(syms, freq, cum),
-                            n + table_bytes + buf.numel() + 8 * rans.LANES),
-            "rans_decode": (lambda: rans.rans_decode(buf, state, lens, n, freq, cum, s2s),
-                            lambda: R.rans_decode(buf, state, lens, n, freq, cum, s2s),
-                            coded + 8 * rans.LANES + table_bytes + 4 * rans.TAB + n),
+            "rans_encode": (lambda: rans.rans_encode_many(syms, tf, tc, te),
+                            lambda: R.rans_encode(syms[0], tf, tc),
+                            P * n + table_bytes + buf.numel() + 8 * rans.LANES * P),
+            "rans_decode": (lambda: rans.rans_decode_many(buf, state, lens, n, tf, tc, ts),
+                            lambda: R.rans_decode(buf[0], state[0], lens[0], n, tf, tc, ts),
+                            coded + 8 * rans.LANES * P + table_bytes + 4 * rans.TAB + P * n),
         }
         for name, (kern, twin, n_bytes) in runs.items():
             reps, iters = (7, 20) if label != "large" else (3, 2)
             ms = time_ms(kern, reps=reps, iters=iters)
             plain_ms = (time_ms(twin, reps=twin_reps, iters=1, warmup=1) if twin_reps
                         else None)
-            b_ms, b_by = bound(n_bytes, 12 * steps * rans.LANES)
+            b_ms, b_by = bound(n_bytes, 12 * steps * rans.LANES * P)
+            chain_ms = steps * chain_us[name] / 1e3
             timings.setdefault(name, {})[label] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, shape=[n],
-                steps=steps, coded_bytes=coded)
-            print(f"[time] {name:17s} {label:5s} {n:>8d} symbols ({steps} rows) kernel "
-                  f"{ms:.5f} ms  twin {'-' if plain_ms is None else f'{plain_ms:.5f}'} ms  "
-                  f"bound {b_ms:.6f} ms ({b_by})")
-    return {"worst": worst, "timings": timings}
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, shape=[P, n],
+                steps=steps, coded_bytes=coded, chain_ms=chain_ms,
+                us_a_row=ms * 1e3 / steps, chain_us_a_row=chain_us[name])
+            print(f"[time] {name:17s} {label:12s} {P} x {n:>8d} symbols ({steps} rows) kernel "
+                  f"{ms:.5f} ms = {ms * 1e3 / steps:.4f} us a row  twin "
+                  f"{'-' if plain_ms is None else f'{plain_ms:.5f}'} ms  bound {b_ms:.6f} ms "
+                  f"({b_by})  chain bound {chain_ms:.5f} ms ({chain_ms / ms:.3f} of it reached)")
+    return {"worst": worst, "timings": timings, "chain_us": chain_us}
 
 
 # ---------------------------------------------------------------------------
@@ -924,20 +1015,27 @@ def _wire_launches(launches: dict) -> dict:
             if v and k not in ("quant_det", "quant_det_bwd")}
 
 
-def _check_pareto_row(r: dict, kw: dict, launches: dict, rounds: int, cohort: int) -> None:
+def _rans_legs(kw: dict) -> int:
+    """The entropy-coded legs of a cell: each rANS kernel launches exactly
+    once a leg a round (the downlink's one payload; the cohort's uplink
+    payloads together)."""
+    return sum("rans" in str(kw.get(f"{leg}_codec") or "") for leg in ("down", "up"))
+
+
+def _check_pareto_row(r: dict, kw: dict, launches: dict, rounds: int) -> None:
     """A pareto cell: its bound the reference's integer, the two-lane
     contract (measured <= bound with a rANS leg, == without), and each rANS
-    kernel launched once per payload (1 downlink + P uplinks a round)."""
+    kernel launched exactly once an entropy-coded leg a round."""
     name = r["comm_fmt"]
     check(r["round_bytes"] == PARETO_BYTES[name],
           f"{name}: bound {r['round_bytes']} != {PARETO_BYTES[name]}")
-    rans_cell = any("rans" in kw[f"{leg}_codec"] for leg in ("down", "up"))
-    if rans_cell:
+    legs = _rans_legs(kw)
+    if legs:
         check(0 < r["measured_round_bytes"] <= r["round_bytes"],
               f"{name}: measured {r['measured_round_bytes']} > bound {r['round_bytes']}")
         for k in RANS_KERNELS:
-            check(launches[k] == rounds * (1 + cohort),
-                  f"{name}: {k} launched {launches[k]} times, not {rounds * (1 + cohort)}")
+            check(launches[k] == rounds * legs,
+                  f"{name}: {k} launched {launches[k]} times, not {rounds * legs}")
     else:
         check(r["measured_round_bytes"] == r["round_bytes"],
               f"{name}: measured {r['measured_round_bytes']} != bound {r['round_bytes']}")
@@ -968,7 +1066,6 @@ def format_phase(dev) -> dict:
     cells = format_ablation.cells()
     rows = format_ablation.iter_rows(device=dev)
     n_rounds = format_ablation.DEFAULT["rounds"]
-    cohort = round(format_ablation.DEFAULT["k"] * format_ablation.DEFAULT["c"])
     for section, _, kw in cells:
         K.reset_launches()
         synchronize()
@@ -987,7 +1084,7 @@ def format_phase(dev) -> dict:
         if section == "pareto":
             print(f"[pareto] {name:34s} bits/param {r['bits_per_param']} gain to 0.95 "
                   f"{r['gain_to_acc_0p95']} acc vs fp32 {r['acc_delta_vs_fp32']}")
-            _check_pareto_row(r, kw, launches, n_rounds, cohort)
+            _check_pareto_row(r, kw, launches, n_rounds)
             continue
         want = FORMAT_BYTES[name]
         check(r["round_bytes"] == want, f"{name}: bytes/round {r['round_bytes']} != {want}")
@@ -1048,8 +1145,9 @@ def format_phase(dev) -> dict:
     measured = hist.cumulative_bytes[-1] / FORMAT_ROUNDS
     check(0 < measured <= want, f"lenet {label}: measured {measured} > bound {want}")
     for k in RANS_KERNELS:
-        check(launches[k] == FORMAT_ROUNDS * (1 + cfg.clients_per_round),
-              f"lenet {label}: {k} launched {launches[k]} times")
+        check(launches[k] == FORMAT_ROUNDS * _rans_legs(kw),
+              f"lenet {label}: {k} launched {launches[k]} times, not "
+              f"{FORMAT_ROUNDS * _rans_legs(kw)}")
     _check_cell_launches(f"lenet {label}", kw, launches)
     check(all(math.isfinite(v) for v in hist.loss), f"lenet {label}: loss {hist.loss}")
     for v in sim.state.params.values():
@@ -1192,6 +1290,79 @@ def _lm_projection_cases(dev) -> list:
     return cases
 
 
+def _lm_real_step_clips(dev) -> dict:
+    """Every B11 call of one real full-width local step (``fed_lm``'s client
+    0, first batch of 4 x 64 tokens, the port's init weights), captured as
+    ``lm_dw_study.py`` captures them: dx's g_beta and dw's g_alpha held to
+    ``ref.clip_within_bar``, the distance from the f64 cotangent of the
+    twin's quantized operands over the magnitude sum of its terms at most
+    max(4x the twin's own, 2^-20); the twin is run only where the kernel is
+    past 2^-20. Their terms cancel up to ~1e5-fold, so GA_RTOL, a bound
+    relative to the result, gates only the smoke's non-cancelling
+    cotangent. Returns the worst distance of each kernel."""
+    from repro_torch import configs, tree
+    from repro_torch.bench import fed_lm
+    from repro_torch.core.fp8 import E4M3
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import fp8_matmul as FM
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    cfg = configs.get(LM_ARCH)
+    model = registry.get_model(cfg)
+    params = model.init(0, device=dev)
+    xs, ys = fed_lm.client_data(1, 1, 64, cfg.vocab)
+    names = [n for n, _ in tree.flatten(params)]
+    leaves = [t.detach().requires_grad_() for t in tree.leaves(params)]
+    calls = {name: [] for name in ("qat_matmul_dx", "qat_matmul_dw")}
+    real = {name: getattr(FM, name) for name in calls}
+
+    def capture(name):
+        def fn(g, x, w, beta, alpha, fmt=E4M3):
+            out = real[name](g, x, w, beta, alpha, fmt)
+            calls[name].append((g.clone(), x.clone(), w, beta.clone(), alpha.clone(), fmt,
+                                float(out[1])))
+            return out
+        return fn
+    for name in calls:
+        setattr(FM, name, capture(name))
+    try:
+        loss = model.train_loss(tree.unflatten(names, leaves),
+                                {"tokens": xs[0, :4].to(dev), "labels": ys[0, :4].to(dev)},
+                                QATConfig())
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for name in calls:
+            setattr(FM, name, real[name])
+    del loss, leaves, params
+    worst = {}
+    for name, got in calls.items():
+        dx = name == "qat_matmul_dx"
+        twin = R.qat_matmul_dx if dx else R.qat_matmul_dw
+        e_max, cancel, twins, shapes = 0.0, 0.0, 0, set()
+        for g, x, w, beta, alpha, fmt, kv in got:
+            clip64, mag = R.qat_clip_f64(g, x, w, beta, alpha, fmt, dx=dx)
+            ok, e, e_t = R.clip_within_bar(
+                kv, clip64, mag, lambda: float(twin(g, x, w, beta, alpha, fmt)[1]))
+            twins += e_t is not None
+            shp = (x.shape[0], x.shape[1], w.shape[1])
+            shapes.add(shp)
+            check(ok, f"{name} {shp}: clip cotangent {e:.3g} of its terms' magnitude sum from "
+                  f"the f64 one, beyond max({R.BAR_FACTOR:g} x the twin's {e_t}, 2^-20)")
+            e_max = max(e_max, e)
+            cancel = max(cancel, mag / max(abs(clip64), 1e-300))
+        worst[name] = e_max
+        print(f"[lm-kernels] real step: {len(got)} {name} calls at {len(shapes)} shapes, "
+              f"{'g_beta' if dx else 'g_alpha'} within {e_max:.3g} of its terms' magnitude "
+              f"sum from f64 (worst ratio to 2^-20 {e_max / R.BAR_FLOOR:.3g}; twin run at "
+              f"{twins}), terms cancelling up to {cancel:.3g}x")
+        got.clear()
+    torch.cuda.empty_cache()
+    print(f"[lm-kernels] real-step clip check {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
 def lm_kernel_phase(dev) -> dict:
     """B10 and both B11 kernels against their twins at every distinct
     projection shape of the LM paths (``fed_lm`` and the trainer at
@@ -1210,7 +1381,9 @@ def lm_kernel_phase(dev) -> dict:
     off), the one PyTorch call for the same product. Bound: bytes (each input
     read once, each output written once) over 3.35 TB/s or 2 M N K over the
     bf16 dense peak, the larger. ``max_abs_err``: each output against ref64,
-    and each clip cotangent's distance from the twin's."""
+    and each clip cotangent's distance from the twin's. Then every B11 call
+    of one real full-width step, its clip cotangent against the magnitude
+    bar (``_lm_real_step_clips``)."""
     from repro_torch.kernels import fp8_matmul as FM
     from repro_torch.kernels import ref as R
 
@@ -1310,8 +1483,9 @@ def lm_kernel_phase(dev) -> dict:
     slower = [(name, shp) for name in QAT_MATMUL
               for shp, t in timings[name].items() if t["ms"] > t["library_ms"]]
     print(f"[lm-kernels] B10 / dx / dw slower than torch.matmul at: {slower or 'no shape'}")
+    clips = _lm_real_step_clips(dev)
     print(f"[lm-kernels] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"worst": worst, "timings": timings}
+    return {"worst": worst, "timings": timings, "real_step_clips": clips}
 
 
 def lm_card_vs_cpu_phase(dev) -> None:
@@ -1684,7 +1858,22 @@ def b9_path_phase(dev) -> dict:
           f"fake_quant_amax_plane launches {launches}")
     print(f"[b9] dispatch.fake_quant_amax_plane on LeNet's plane {tuple(w2.shape)}: 1 launch, "
           f"values and STE gradients equal to fake_quant_plane's (B5)")
-    return {"launches": launches}
+    # one more call under the profiler, for B9's device time a launch
+    from torch.profiler import ProfilerActivity, profile
+
+    synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dispatch.fake_quant_amax_plane(w2, col, key)
+        synchronize()
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and "fake_quant_amax_kernel" in e.key]
+    device_us = (sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+                 / max(sum(e.count for e in rows), 1)) if rows else None
+    print(f"[b9] profiled call: fake_quant_amax_kernel "
+          f"{'not seen by the profiler' if device_us is None else f'{device_us:.2f} us'} of "
+          "device time a launch")
+    return {"launches": launches, "device_us": device_us}
 
 
 def _train_step_grads(model, p, batch, qcfg, opt_level, accum, where, per_leaf=False):
@@ -2000,7 +2189,7 @@ def main() -> int:
             tt = trainer_kern["timings"]
             t = tt["full"][name] if name in TRAIN_KERNELS else tt[name]["main"]
             extra = ({"device_us": trainer["device_us"].get(name)} if name in TRAIN_KERNELS
-                     else {"large": tt[name]["large"]})
+                     else {"large": tt[name]["large"], "device_us": b9["device_us"]})
             rows.append({
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2021,7 +2210,10 @@ def main() -> int:
             extra = {"mlp": kern["timings"][name]["mlp"], "device_us": fmt["device_us"][
                 PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}
         elif name in RANS_KERNELS:
-            extra = {"lenet": kern["timings"][name]["lenet"], "steps": t["steps"],
+            extra = {"lenet": kern["timings"][name]["lenet"],
+                     "lenet_cohort": kern["timings"][name]["lenet cohort"],
+                     "steps": t["steps"], "chain_ms": t["chain_ms"],
+                     "us_a_row": t["us_a_row"], "chain_us_a_row": t["chain_us_a_row"],
                      "device_us": fmt["device_us"]["lenet " + LENET_PARETO_CELL[0]].get(
                          name + "_kernel")}
             if name in MIRRORS:

@@ -107,7 +107,19 @@ class ErrorFeedbackCodec(WireCodec):
         ``(P, 2)`` u32 encode keys, ``e_sel`` the cohort's ``(P, spec.total)``
         residual rows. Returns ``(msgs, new_e, payloads)``: the decoded
         messages the server aggregates, the updated rows, and the inner
-        payloads (read for a dynamic inner's traced bytes)."""
+        payloads (read for a dynamic inner's traced bytes). A
+        :class:`RansCodec` inner grid-codes each compensated client, then
+        range-codes the cohort in one launch each way
+        (:meth:`RansCodec.cohort_transit`), bitwise the same."""
+        if isinstance(self.inner, RansCodec):
+            flat, inner = [], []
+            for p, k, e in zip(client_params, keys, e_sel):
+                comp = add_resid(p, e, spec)
+                flat.append(flatten_q(comp, spec))
+                inner.append(self.inner.inner.encode(comp, spec, k))
+            msgs, payloads = self.inner.cohort_transit(inner, spec)
+            new_e = [f - flatten_q(m, spec) for f, m in zip(flat, msgs)]
+            return msgs, torch.stack(new_e), payloads
         msgs, new_e, payloads = [], [], []
         for p, k, e in zip(client_params, keys, e_sel):
             comp = add_resid(p, e, spec)

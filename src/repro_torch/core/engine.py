@@ -48,6 +48,7 @@ from . import ef as ef_lib
 from . import metrics, wire
 from . import scaling as scaling_lib
 from .codec import DeltaCodec, Fp8Codec, WireCodec
+from .entropy import RansCodec
 from .fp8 import E4M3, FP8Format
 from .plane import nelem
 from .qat import BitsFn, QATConfig
@@ -381,7 +382,17 @@ class WireLink:
            keys: torch.Tensor, ref: dict | None = None):
         """Cohort -> server, one independent payload per client: ``(msgs,
         per_client_nbytes)``; ``ref`` is the round's reference model (the
-        decoded broadcast). Consumes ``client_params`` (see :func:`_drain`)."""
+        decoded broadcast). Consumes ``client_params`` (see :func:`_drain`).
+        An entropy-coded uplink inner-encodes each client, then range-codes
+        the cohort's code streams in one launch each way
+        (:meth:`~repro_torch.core.entropy.RansCodec.cohort_transit`); every
+        other codec carries one client at a time."""
+        c = self.up_c
+        if isinstance(c, RansCodec) and c.quantized and spec.q_slots:
+            inner = [c.inner.encode(p, spec, k, ref=ref)
+                     for p, k in zip(_drain(client_params), keys)]
+            msgs, payloads = c.cohort_transit(inner, spec, ref=ref)
+            return msgs, [c.payload_nbytes_traced(pl, spec) for pl in payloads]
         msgs, nbytes = [], []
         for p, k in zip(_drain(client_params), keys):
             m, n = _codec_transit(self.up_c, p, spec, k, ref=ref)

@@ -9,7 +9,8 @@ is the mass of its rounding bin, whatever alpha is: the table depends on the
 grid and ``sigma`` alone and never crosses the wire. :class:`RansCodec`
 range-codes the inner codec's byte stream against it with the 16-lane rANS
 coder of ``kernels.rans``, through ``kernels.dispatch.rans_encode`` and
-``rans_decode``.
+``rans_decode``, or a cohort's uplink payloads in one launch of each
+(:meth:`RansCodec.cohort_transit`, ``rans_encode_many`` / ``rans_decode_many``).
 
 Frequencies sum to ``2^SCALE_BITS`` with every byte kept at >= 1, so any
 stream decodes and the largest frequency stays at most ``4096 - 255`` (the
@@ -39,6 +40,7 @@ from .codec import DeltaCodec, Fp8Codec, WireCodec
 from .fp8 import FP8Format
 from ..kernels import dispatch
 from ..kernels import rans as rans_kernel
+from ..kernels import ref as kernel_ref
 from ..kernels.ref import codes_per_byte
 
 # value-scale priors in units of the clip (the reference's, fitted on real
@@ -137,6 +139,12 @@ def _device_table(fmt: FP8Format, sigma: float, device: str):
     return tuple(torch.from_numpy(a).to(device) for a in byte_table(fmt, sigma))
 
 
+@functools.lru_cache(maxsize=None)
+def _device_enc_table(fmt: FP8Format, sigma: float, device: str) -> torch.Tensor:
+    freq, cum, _ = (torch.from_numpy(a) for a in byte_table(fmt, sigma))
+    return kernel_ref.rans_enc_table(freq, cum).to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class RansCodec(WireCodec):
     """rANS over the inner grid codec's code stream (``rans:<inner>``).
@@ -178,12 +186,36 @@ class RansCodec(WireCodec):
         """``(freq, cum, slot2sym)`` as int32 tensors on ``device``."""
         return _device_table(self.grid_fmt, self.table_sigma, str(torch.device(device)))
 
+    def enc_table(self, device) -> torch.Tensor:
+        """The encode kernel's reciprocal table (``ref.rans_enc_table``) on
+        ``device``, built at first use."""
+        return _device_enc_table(self.grid_fmt, self.table_sigma, str(torch.device(device)))
+
     def encode(self, params, spec, key2, ref=None):
         p = self.inner.encode(params, spec, key2, ref=ref)
         codes = p["codes"].contiguous()
         freq, cum, _ = self.table(codes.device)
-        buf, state, lens = dispatch.rans_encode(codes, freq, cum)
+        buf, state, lens = dispatch.rans_encode(codes, freq, cum, self.enc_table(codes.device))
         return {"codes": buf.reshape(-1), "other": p["other"], "rans": (state, lens)}
+
+    def cohort_transit(self, inner_payloads: list[dict], spec, ref=None):
+        """The rANS stage of a cohort's uplink: the inner codec's payloads
+        (one a client, all of one length) range-coded in one encode launch
+        and decoded in one decode launch, then each inner-decoded against
+        ``ref``. Returns ``(msgs, payloads)``: the received trees and each
+        client's payload as :meth:`encode` gives it, bitwise those of
+        :meth:`encode` and :meth:`decode` one client at a time."""
+        codes = torch.stack([p["codes"].reshape(-1) for p in inner_payloads])
+        dev = codes.device
+        freq, cum, s2s = self.table(dev)
+        buf, state, lens = dispatch.rans_encode_many(codes, freq, cum, self.enc_table(dev))
+        syms = dispatch.rans_decode_many(buf, state, lens, self.inner.code_nbytes(spec), freq,
+                                         cum, s2s)
+        msgs = [self.inner.decode({"codes": s, "other": p["other"]}, spec, ref=ref)
+                for s, p in zip(syms, inner_payloads)]
+        payloads = [{"codes": b.reshape(-1), "other": p["other"], "rans": (st, ln)}
+                    for b, st, ln, p in zip(buf, state, lens, inner_payloads)]
+        return msgs, payloads
 
     def decode(self, payload, spec, ref=None):
         buf = payload["codes"].reshape(rans_kernel.LANES, -1)

@@ -279,12 +279,14 @@ def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
     return fp8_quant.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)
 
 
-def rans_encode(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor):
+def rans_encode(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,
+                enc: torch.Tensor | None = None):
     """16-lane static-table rANS encode of the (n,) u8 ``syms``: ``(buf (16,
     cols) u8, state (16,) i32, lens (16,) i32)``, the encode kernel on a CUDA
-    stream, the step-for-step twin on a CPU one (the reference computes it
-    in jnp, ``repro/kernels/rans.py:81``)."""
-    return rans_kernel.rans_encode(syms, freq, cum)
+    stream (``enc`` its reciprocal table, ``ref.rans_enc_table``), the
+    step-for-step twin on a CPU one (the reference computes it in jnp,
+    ``repro/kernels/rans.py:81``)."""
+    return rans_kernel.rans_encode(syms, freq, cum, enc)
 
 
 def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: int,
@@ -292,3 +294,17 @@ def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: i
     """Decode an interleaved-rANS byte stream back to its (n,) u8 symbols: B12
     on a CUDA payload, the step-for-step twin on a CPU one."""
     return rans_kernel.rans_decode(buf, state, lens, n, freq, cum, slot2sym)
+
+
+def rans_encode_many(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,
+                     enc: torch.Tensor | None = None):
+    """:func:`rans_encode` of a cohort's (B, n) same-table payloads in one
+    launch: ``(buf (B, 16, cols), state (B, 16), lens (B, 16))``."""
+    return rans_kernel.rans_encode_many(syms, freq, cum, enc)
+
+
+def rans_decode_many(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: int,
+                     freq: torch.Tensor, cum: torch.Tensor,
+                     slot2sym: torch.Tensor) -> torch.Tensor:
+    """:func:`rans_decode` of a cohort's payloads in one launch: (B, n) u8."""
+    return rans_kernel.rans_decode_many(buf, state, lens, n, freq, cum, slot2sym)

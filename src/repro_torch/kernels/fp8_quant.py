@@ -158,8 +158,9 @@ def load() -> ctypes.CDLL:
         lib.repro_unpack_sub_tiles.argtypes = [p, p, i32, p, i64, i32, *fmt_args, p]
         lib.repro_quant_pack_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, i32,
                                                     *fmt_args, p]
-        lib.repro_rans_encode.argtypes = [p, i64, i64, i64, p, p, p, p, p, p]
-        lib.repro_rans_decode.argtypes = [p, i64, p, p, i64, i64, p, p, p, p, p]
+        lib.repro_rans_encode.argtypes = [p, i64, i64, i64, i32, p, p, p, p, p]
+        lib.repro_rans_decode.argtypes = [p, i64, p, p, i64, i64, i32, p, p, p, p, p]
+        lib.repro_rans_chain.argtypes = [i32, i64, p, p, p, p, p, p]
         lib.repro_qat_matmul_scratch.argtypes = [i32, i32, i32, i32]
         lib.repro_qat_matmul_scratch.restype = ctypes.c_longlong
         lib.repro_qat_matmul.argtypes = [p, p, p, p, p, p, i32, i32, i32, *fmt_args, p]
@@ -172,7 +173,8 @@ def load() -> ctypes.CDLL:
                    lib.repro_quant_rand, lib.repro_quant_rand_bwd,
                    lib.repro_quant_pack_sub_tiles, lib.repro_unpack_sub_tiles,
                    lib.repro_quant_pack_amax_tiles, lib.repro_rans_encode,
-                   lib.repro_rans_decode, lib.repro_qat_matmul, lib.repro_qat_matmul_dx,
+                   lib.repro_rans_decode, lib.repro_rans_chain, lib.repro_qat_matmul,
+                   lib.repro_qat_matmul_dx,
                    lib.repro_qat_matmul_dw, lib.repro_fake_quant_amax_tiles,
                    lib.repro_quant_det_tiles, lib.repro_quant_det_tiles_bwd):
             fn.restype = ctypes.c_int

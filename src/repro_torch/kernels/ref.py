@@ -392,6 +392,38 @@ def rans_encode(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor):
     return buf[:, :cols].contiguous(), x.to(torch.int32), ptr.to(torch.int32)
 
 
+def rans_enc_table(freq: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """The encode kernel's per-symbol table: ryg's ``rans_byte``
+    ``RansEncSymbol`` at ``SCALE_BITS``, ``(256, 2)`` int32 on ``freq``'s
+    device. Word 0 holds the reciprocal ``rcp`` (its u32 bits), word 1 ``bias |
+    (TAB - f) << 13 | shift << 25``, so that ``x + bias + ((x * rcp) >> 32 >>
+    shift) * (TAB - f)`` is ``((x // f) << SCALE_BITS) + x % f + cum`` for
+    every state below ``2^31``: ``shift = ceil(log2 f) - 1`` and ``rcp =
+    ceil(2^(shift + 32) / f)`` (Alverson's exact reciprocal), except ``f == 1``,
+    which takes ``rcp = 2^32 - 1``, ``shift = 0`` and ``bias = cum + TAB - 1``
+    (the quotient comes out as ``x - 1``)."""
+    f = freq.to(torch.int64)
+    c = cum.to(torch.int64)
+    bits = sum((f > (1 << k)).to(torch.int64) for k in range(SCALE_BITS + 1))  # ceil(log2 f)
+    one = f == 1
+    shift = torch.where(one, 0, bits - 1)
+    rcp = torch.where(one, (1 << 32) - 1, ((1 << (bits + 31)) + f - 1) // f)
+    bias = torch.where(one, c + TAB - 1, c)
+    word1 = bias | (TAB - f) << 13 | shift << 25
+    rcp = torch.where(rcp >= 1 << 31, rcp - (1 << 32), rcp)     # u32 bits as int32
+    return torch.stack([rcp, word1], dim=1).to(torch.int32).contiguous()
+
+
+def rans_dec_table(freq: torch.Tensor, cum: torch.Tensor, slot2sym: torch.Tensor) -> torch.Tensor:
+    """The decode kernel's slot table, as it builds it in shared memory: (TAB,)
+    int64, ``freq[s] | (slot - cum[s]) << 12 | s << 24`` for ``s =
+    slot2sym[slot]``, so a row decodes as ``x = (e & 0xFFF) * (x >> 12) + ((e
+    >> 12) & 0xFFF)`` with symbol ``e >> 24``."""
+    s = slot2sym.to(torch.int64)
+    slot = torch.arange(TAB, device=s.device)
+    return freq.to(torch.int64)[s] | (slot - cum.to(torch.int64)[s]) << 12 | s << 24
+
+
 def rans_decode(buf: torch.Tensor, state: torch.Tensor, lens: torch.Tensor, n: int,
                 freq: torch.Tensor, cum: torch.Tensor, slot2sym: torch.Tensor) -> torch.Tensor:
     """Twin of ``_decode_step`` / ``rans_decode_jnp``: pop ``LANES`` symbols a
@@ -552,3 +584,39 @@ def stray_nonzeros(out: torch.Tensor, ref64: torch.Tensor) -> int:
 def within_bar(err_kernel: float, err_twin: float) -> bool:
     """The B10 / B11 contract: no less accurate than the twin, up to 4x or 16 ULP."""
     return err_kernel <= max(BAR_FACTOR * err_twin, BAR_FLOOR)
+
+
+def qat_clip_f64(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+                 alpha: torch.Tensor, fmt: FP8Format = E4M3, *, dx: bool):
+    """``(clip64, mag)``: B11's scalar clip cotangent in f64 on the twin's
+    quantized operands, and the sum of its terms' absolute values. ``dx``:
+    dx's ``g_beta``, the product ``g @ wq^T`` routed at x's clip ``beta``;
+    else dw's ``g_alpha``, ``xq^T @ g`` routed at w's clip ``alpha`` (each
+    term the f64 product times the f32 route factor of ``_ste``)."""
+    g, x, w, beta, alpha = (t.detach() for t in (g, x, w, beta, alpha))
+    if dx:
+        v64, z, a = g.double() @ quant_det(w, alpha, fmt).double().t(), x, beta
+    else:
+        v64, z, a = quant_det(x, beta, fmt).double().t() @ g.double(), w, alpha
+    a = torch.clamp(a.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    zf = z.to(torch.float32)
+    terms = v64 * _ste(zf, a, torch.ones_like(zf), fmt)[1].double()
+    return float(terms.sum()), float(terms.abs().sum())
+
+
+def clip_within_bar(kernel: float, clip64: float, mag: float, twin=None):
+    """The B10 / B11 clip-cotangent contract, on the magnitude sum of its
+    terms (their f32 sum may cancel many-fold, so no relative bound on the
+    result holds): ``e = |kernel - clip64| / mag`` at most ``max(4 e_twin,
+    2^-20)``, :func:`within_bar`'s form, ``clip64`` and ``mag`` from
+    :func:`qat_clip_f64`. ``twin`` (the twin's cotangent, or a callable
+    giving it) is read only when ``e`` exceeds 2^-20. Returns ``(ok, e,
+    e_twin)``, ``e_twin`` None when the twin was not read."""
+    def err(v: float) -> float:
+        d = abs(float(v) - clip64)
+        return d / mag if mag > 0 else d
+    e = err(kernel)
+    if e <= BAR_FLOOR or twin is None:
+        return e <= BAR_FLOOR, e, None
+    e_t = err(twin() if callable(twin) else twin)
+    return within_bar(e, e_t), e, e_t

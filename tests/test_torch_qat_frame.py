@@ -206,3 +206,27 @@ def test_framed_products_match_reference_interpret_kernels(shape, fmt, kernels):
         framed, _, _, mag = _framed(kernel, x, w, beta, alpha, g, tfmt)
         d = np.abs(framed.double().numpy() - np.asarray(r_out))
         assert np.all(d <= ELEM_RTOL * mag.numpy() + 1e-30), kernel
+
+
+@pytest.mark.parametrize("shape", [(77, 130, 200), (64, 256, 96)])
+@pytest.mark.parametrize("dx", [True, False], ids=["g_beta", "g_alpha"])
+def test_clip_cotangent_bar_on_the_terms_magnitude_sum(shape, dx):
+    """``ref.clip_within_bar``: the twin's clip cotangent, on a cotangent of
+    random sign whose terms cancel, lies within 2^-20 of their magnitude sum
+    from ``ref.qat_clip_f64``, though far from it relative to the result; an
+    error of 2^-19 of the magnitude sum fails unless 4x the twin's own
+    reaches it; a callable twin is read only past 2^-20."""
+    x, w, beta, alpha, g = _inputs(*shape, seed=5)
+    g = g * torch.from_numpy(np.random.default_rng(6).choice([-1.0, 1.0], g.shape)).float()
+    twin = (ref.qat_matmul_dx if dx else ref.qat_matmul_dw)(g, x, w, beta, alpha)[1]
+    clip64, mag = ref.qat_clip_f64(g, x, w, beta, alpha, dx=dx)
+    assert mag > 20 * abs(clip64)                     # the terms cancel
+    ok, e, e_t = ref.clip_within_bar(float(twin), clip64, mag)
+    assert ok and e <= ref.BAR_FLOOR and e_t is None
+    off = clip64 + 2 * ref.BAR_FLOOR * mag
+    assert not ref.clip_within_bar(off, clip64, mag, float(twin))[0]
+    assert ref.clip_within_bar(off, clip64, mag, clip64 + 0.75 * ref.BAR_FLOOR * mag)[0]
+    assert not ref.clip_within_bar(off, clip64, mag)[0]
+    read = []
+    ref.clip_within_bar(float(twin), clip64, mag, lambda: read.append(1) or 0.0)
+    assert read == []
