@@ -10,12 +10,17 @@ Phases, each fatal on failure (the script then exits non-zero):
    convolutions; builds the nineteen CUDA kernels from ``src/repro_torch/
    kernels/csrc`` (``nvcc``, one process per source, at first use) and
    prints the build time.
-2. each kernel against its plain PyTorch twin on the card, at the shapes
+2. the premise of B1/B2's scale table, log2f non-decreasing over all 2^31
+   f32 patterns from +0 to FLT_MAX (``log2f_phase``, one launch); then
+   each kernel against its plain PyTorch twin on the card, at the shapes
    of every path driven below (the three Table 1 models: cifar10-lenet,
    cifar100-mlp, speech-kwt): the QAT pair at every QAT site shape of each
    model at batch 32 (random inputs; ``ACT_SHAPES`` and the weights), on
    each model's init weights and a batch of its data at their own clip
-   values, and at a multi-block ragged (8191, 1024); the wire pair and
+   values, at a multi-block ragged (8191, 1024), at odd lengths (1, 7, 8,
+   9, 4097, 2^21 + 3) and on views 1-7 elements into their storage, x and g
+   misaligned differently (``qat_pair_edge_cases``; E5M2 and both FP4
+   formats at 2^21 + 3), a second B2 call bitwise equal to the first; the wire pair and
    ``fake_quant_tiles`` (det and counter-RNG, alpha as a column and per
    element) on random tiles at each model's plane/wire shape and at
    (8191, 1024), and on each model's real plane (its init weights with
@@ -56,7 +61,9 @@ Phases, each fatal on failure (the script then exits non-zero):
    method uq+ (five kernels; ``fake_quant_tiles`` exactly 25 times a round:
    5 GD steps + 20 grid points). ``bytes_per_round`` must be 826860 and the
    loss finite. The uq+ server step alone is timed, and one more round of
-   each path is profiled.
+   each path is profiled; in every profiled round (here, in phases 5 and 6)
+   each B2 call must be one CUDA kernel, ``sum_partials_kernel`` only B6's
+   second pass.
 5. the method grid: ``repro_torch.bench.table1`` on cifar10-lenet,
    cifar100-mlp and speech-kwt, iid and Dir(0.3), fp32/uq/uq+, at the
    reference driver's CPU-budget scale cut to 10 of its 20 rounds (eval
@@ -113,7 +120,9 @@ Phases, each fatal on failure (the script then exits non-zero):
    ``fake_quant_amax_tiles`` (det and counter-RNG, alpha column and per
    element, at (135, 1024) and (8191, 1024): values bitwise against B5, row
    max equal to ``torch.amax``) and the bf16 B1/B2 instances at the
-   trainer's activation shapes, each timed beside its twin and bound
+   trainer's activation shapes, odd lengths and misaligned views, each
+   timed beside its twin and bound, with ``qat_probe.py``'s copy and
+   arithmetic probes and SASS counts (what bounds them)
    (``trainer_kernel_phase``, after phase 7's kernels); a reduced-TinyLlama
    train step on the card against the CPU twins at opt_level 1, 0 and 2
    (``trainer_card_vs_cpu_phase``, after phase 3) and B9's only caller,
@@ -123,11 +132,13 @@ Phases, each fatal on failure (the script then exits non-zero):
    3e-4, opt_level 1) for 20 steps with the counters zeroed just before and
    read just after: one B7 forward and one backward a step, B1/B2 at every
    activation site (162 a step), no B10/B11, finite losses; s/step,
-   tokens/s, peak memory, one profiled step; then 2 steps at opt_level 0:
+   tokens/s, peak memory, one profiled step (B1/B2 device us a launch, one
+   kernel a B2 call); then 2 steps at opt_level 0:
    B10/B11 at every projection, no B7 (``trainer_main_path_phase``).
 
 The second-to-last line is a JSON object with one entry per kernel (its
-launches counted on the path that runs it); the last line is
+launches counted on the path that runs it; B1/B2 also over every path of
+phases 4-8); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -286,6 +297,70 @@ ACT_SHAPES = {
 LARGE = (8191, 1024)    # a multi-block ragged shape
 
 
+QAT_EDGE_N = (1, 7, 8, 9, 4097, 2 ** 21 + 3)
+QAT_MISALIGN = ((1, 3), (5, 0), (0, 7), (6, 2))   # storage offsets of x and g, elements
+
+
+def qat_pair_edge_cases(dev, dtype, worst) -> int:
+    """B1/B2 against their twins where the vector path does not reach: odd
+    n (a lone element, the ragged head and tail) and views whose storage
+    offsets are 1-7 elements, x and g misaligned differently (the
+    one-element path throughout), in ``dtype``; at 2^21 + 3 elements (the
+    scale table's route) also E5M2 and both FP4 formats. out and gx bitwise
+    (f32 B1 within TIE_FRAC), g_alpha within GA_RTOL with a cotangent signed
+    like x, and a second call bitwise equal to the first. Returns the
+    number of cases."""
+    from repro_torch.core.fp8 import E4M3, E5M2, FP4_E2M1, FP4_E3M0
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.kernels import ref as R
+
+    gen = torch.Generator().manual_seed(31)
+    cases = [(n, 0, 0, E4M3) for n in QAT_EDGE_N]
+    cases += [(n, ox, og, E4M3) for ox, og in QAT_MISALIGN for n in (4097, 2 ** 21 + 3)]
+    cases += [(2 ** 21 + 3, 0, 0, fmt) for fmt in (E5M2, FP4_E2M1, FP4_E3M0)]
+    for n, ox, og, fmt in cases:
+        bx = (torch.randn(n + 8, generator=gen) * 1.5).to(dev).to(dtype)
+        bg = torch.randn(n + 8, generator=gen).abs().to(dev).to(dtype)
+        x = bx[ox:ox + n]
+        gr = bg[og:og + n]
+        gr.mul_(torch.sign(x))
+        a = x.float().abs().max() * 0.8
+        label = f"{dtype} n={n} offsets {ox}/{og} {fmt}"
+        out = K.quant_det(x, a, fmt)
+        bad, err = mismatches(out, R.quant_det(x, a, fmt))
+        worst["quant_det"] = max(worst["quant_det"], err)
+        tie = TIE_FRAC * n if dtype == torch.float32 else 0
+        check(bad <= tie and out.dtype == dtype, f"quant_det {label}: {bad} differ")
+        gx, ga = K.quant_det_bwd(x, a, gr, fmt)
+        rgx, rga = R.quant_det_bwd(x, a, gr, fmt)
+        bad, err = mismatches(gx, rgx)
+        worst["quant_det_bwd"] = max(worst["quant_det_bwd"], err, abs(float(ga) - float(rga)))
+        rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
+        check(bad == 0 and gx.dtype == dtype, f"quant_det_bwd gx {label}: {bad} differ")
+        check(rel <= GA_RTOL, f"quant_det_bwd g_alpha {label}: rel err {rel:.3g}")
+        gx2, ga2 = K.quant_det_bwd(x, a, gr, fmt)
+        check(torch.equal(gx2, gx) and torch.equal(ga2, ga),
+              f"quant_det_bwd {label}: two calls differ")
+    print(f"[kernels] quant_det/bwd {dtype}: {len(cases)} edge cases (n {QAT_EDGE_N}, "
+          f"offsets {QAT_MISALIGN}, E5M2/E2M1/E3M0 at 2^21 + 3) bitwise, g_alpha within "
+          "GA_RTOL and equal between two calls")
+    return len(cases)
+
+
+def log2f_phase(dev) -> dict:
+    """The premise of B1/B2's scale table: log2f non-decreasing over all
+    2^31 f32 patterns from +0 to FLT_MAX on this card (qat_probe.py)."""
+    import qat_probe
+    from repro_torch.kernels import fp8_quant as K
+
+    r = qat_probe.log2f_monotone(dev, K)
+    check(r["decreases"] == 0, f"log2f decreases {r['decreases']} times, first at "
+          f"pattern {r['first'] or 0:#010x}: the scale table's thresholds do not hold")
+    print(f"[kernels] log2f non-decreasing over all {r['patterns']} patterns from +0 to "
+          f"FLT_MAX ({r['ms']:.2f} ms, one launch)")
+    return r
+
+
 def kernel_phase(dev) -> dict:
     from repro_torch import tree
     from repro_torch.bench import common
@@ -356,6 +431,8 @@ def kernel_phase(dev) -> dict:
         check(rel <= GA_RTOL, f"quant_det_bwd g_alpha {label} {shape}: rel err {rel:.3g}")
         print(f"[kernels] quant_det/bwd {label} {shape}: g_alpha kernel {float(ga):.9g} "
               f"twin {float(rga):.9g} rel {rel:.3g}")
+
+    qat_pair_edge_cases(dev, torch.float32, worst)
 
     # the tile kernels: random tiles at every task's plane/wire shape and at
     # the large shape (alpha a row-max column), then each task's real plane
@@ -936,21 +1013,37 @@ def time_server_step(sim) -> None:
           f"{statistics.median(samples[1:]) * 1e3:.2f} ms (host clock, median of 5)")
 
 
+def _kernel_counts(rows) -> dict:
+    """Launches of each CUDA kernel in a profile's device rows, by its name
+    without template arguments."""
+    counts = {}
+    for e in rows:
+        name = e.key.removeprefix("void ").split("(")[0].split("<")[0]
+        counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
 def profile_round(sim, s_round: float, label: str) -> dict:
     """One more round of the same simulation under ``torch.profiler``: the
     device's busy time and the kernels that take it, by self device time.
     The profiler slows the host many times over, so the busy share is given
     against the unprofiled round time ``s_round`` as well as against the
-    profiled wall. Informational; nothing here is checked. Returns the
-    device us per launch of each of the port's kernels that ran."""
+    profiled wall. Checked: each B2 call launched one kernel
+    (``quant_det_bwd_kernel``), and ``sum_partials_kernel`` ran only for B6's
+    backward. Returns the device us per launch of each of the port's
+    kernels that ran."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import fp8_quant as K
+
+    K.reset_launches()
     synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sim.run(1, seed=1)
         synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+    launches = dict(K.LAUNCHES)
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
@@ -961,6 +1054,16 @@ def profile_round(sim, s_round: float, label: str) -> dict:
           f"{wall_us / 1e3:.1f} ms), {len(rows)} kernel names")
     for e in sorted(rows, key=dev_time, reverse=True)[:12]:
         print(f"[profile]   {dev_time(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    # B2 is one kernel a call; B6's backward keeps its second pass
+    counts = _kernel_counts(rows)
+    check(counts.get("quant_det_bwd_kernel", 0) == launches["quant_det_bwd"]
+          and counts.get("sum_partials_kernel", 0) == launches["quant_rand_bwd"],
+          f"{label}: {launches['quant_det_bwd']} B2 and {launches['quant_rand_bwd']} B6 "
+          f"backward calls launched {counts.get('quant_det_bwd_kernel', 0)} "
+          f"quant_det_bwd_kernel and {counts.get('sum_partials_kernel', 0)} "
+          "sum_partials_kernel")
+    print(f"[profile] {label}: {launches['quant_det_bwd']} B2 calls, one kernel each "
+          f"(no sum_partials_kernel but B6's {launches['quant_rand_bwd']})")
     ours = ("quant_det_kernel", "quant_det_bwd_kernel", "sum_partials_kernel",
             "quant_pack_kernel", "unpack_kernel", "fake_quant_kernel",
             "quant_rand_kernel", "quant_rand_bwd_kernel", "quant_pack_sub_kernel",
@@ -1174,9 +1277,13 @@ def grid_phase(dev) -> dict:
     from repro_torch.bench import table1, table2
     from repro_torch.kernels import fp8_quant as K
 
+    K.reset_launches()
+    synchronize()
     t0 = time.perf_counter()
     rows = table1.run(device=dev, scale=dict(rounds=GRID_ROUNDS),
                       eval_every=GRID_EVAL_EVERY)
+    synchronize()
+    table1_launches = dict(K.LAUNCHES)
     for r in rows:
         want = GRID_BYTES[(r["task"], r["method"])]
         print(f"[grid] table1 {r['task']:14s} {r['setting']:6s} {r['method']:4s} "
@@ -1217,7 +1324,7 @@ def grid_phase(dev) -> dict:
     sim.run(1, seed=2)
     synchronize()
     profile_round(sim, time.perf_counter() - t0, "table2 rand-qat")
-    return {"launches": launches}
+    return {"launches": launches, "table1_launches": table1_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1653,8 +1760,8 @@ TRAIN_KERNELS = ("quant_det_tiles", "quant_det_tiles_bwd")
 TRAINER_INSTANCES = {   # kernel: its CUDA name in a profile
     "quant_det_tiles": "quant_det_tiles_kernel",
     "quant_det_tiles_bwd": "quant_det_tiles_bwd_kernel",
-    "quant_det": "quant_det_kernel<__nv_bfloat16>",
-    "quant_det_bwd": "quant_det_bwd_kernel<__nv_bfloat16>",
+    "quant_det": "quant_det_kernel<__nv_bfloat16, 0>",
+    "quant_det_bwd": "quant_det_bwd_kernel<__nv_bfloat16, 0>",
 }
 
 
@@ -1790,7 +1897,9 @@ def trainer_kernel_phase(dev) -> dict:
               f"twin {t['plain_ms']:.5f} ms bound {b_ms:.6f} ms ({b_by})")
     timings["fake_quant_amax_tiles"] = b9_timings
 
-    # bf16 B1/B2 at the trainer's activation shapes
+    # bf16 B1/B2 at the trainer's activation shapes, at odd n and misaligned
+    import qat_probe
+    qat_pair_edge_cases(dev, torch.bfloat16, dict.fromkeys(("quant_det", "quant_det_bwd"), 0.0))
     bf16 = {}
     for shape in ((8, 128, 2048), (8, 128, 5632), (8, 16, 2048)):
         x = (torch.randn(shape, generator=g) * 1.5).to(dev).to(torch.bfloat16)
@@ -1815,11 +1924,21 @@ def trainer_kernel_phase(dev) -> dict:
                                                    reps=5, iters=10),
                                   bound_ms=bound(6 * n + 8, 20 * n)[0])}
         t = bf16[str(shape)]
+        t["quant_det"]["device_us"] = qat_probe.device_us(lambda: K.quant_det(x, a))
+        t["quant_det_bwd"]["device_us"] = qat_probe.device_us(lambda: K.quant_det_bwd(x, a, gr))
+        for v in t.values():
+            v["fraction"] = v["bound_ms"] * 1e3 / v["device_us"]
         print(f"[trainer-kernels] bf16 quant_det/bwd {shape}: bitwise, g_alpha within GA_RTOL; "
-              f"kernel {t['quant_det']['ms']:.5f} / {t['quant_det_bwd']['ms']:.5f} ms, twin "
-              f"{t['quant_det']['plain_ms']:.5f} / {t['quant_det_bwd']['plain_ms']:.5f} ms, "
-              f"bound {t['quant_det']['bound_ms']:.6f} / {t['quant_det_bwd']['bound_ms']:.6f} ms")
+              f"device {t['quant_det']['device_us']:.3f} / {t['quant_det_bwd']['device_us']:.3f} "
+              f"us a call ({100 * t['quant_det']['fraction']:.1f}% / "
+              f"{100 * t['quant_det_bwd']['fraction']:.1f}% of the bytes bound "
+              f"{t['quant_det']['bound_ms'] * 1e3:.3f} / {t['quant_det_bwd']['bound_ms'] * 1e3:.3f} "
+              f"us); back-to-back calls {t['quant_det']['ms']:.5f} / "
+              f"{t['quant_det_bwd']['ms']:.5f} ms (the host's), twin "
+              f"{t['quant_det']['plain_ms']:.5f} / {t['quant_det_bwd']['plain_ms']:.5f} ms")
     timings["bf16"] = bf16
+    # what bounds them: copy and arithmetic probes, SASS counts
+    timings["qat_probe"] = qat_probe.measure(dev, K)
     print(f"[trainer-kernels] phase {time.perf_counter() - t_phase:.1f} s")
     return {"worst": worst, "timings": timings}
 
@@ -2087,6 +2206,17 @@ def trainer_main_path_phase(dev) -> dict:
           f"{ {k: v for k, v in launches.items() if v} }")
     stats = _profile_kernels(prof, out["step_s"][TRAIN_PROFILED] * 1e6, s_step,
                              f"train step {TRAIN_PROFILED + 1}", TRAINER_INSTANCES)
+    counts = _kernel_counts([e for e in prof.key_averages()
+                             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA])
+    check(counts.get("quant_det_bwd_kernel", 0) == sites
+          and counts.get("sum_partials_kernel", 0) == 0,
+          f"train step {TRAIN_PROFILED + 1}: {counts.get('quant_det_bwd_kernel', 0)} "
+          f"quant_det_bwd_kernel and {counts.get('sum_partials_kernel', 0)} "
+          f"sum_partials_kernel for {sites} B2 calls")
+    print(f"[train] profiled step: B1 {stats['device_us'].get('quant_det', 0.0):.2f} / B2 "
+          f"{stats['device_us'].get('quant_det_bwd', 0.0):.2f} us of device time a launch, "
+          f"{sites} launches each, one kernel a B2 call; B1 + B2 "
+          f"{sites * (stats['device_us'].get('quant_det', 0.0) + stats['device_us'].get('quant_det_bwd', 0.0)) / 1e3:.3f} ms a step")
     del prof
     torch.cuda.empty_cache()
     K.reset_launches()
@@ -2129,6 +2259,7 @@ def main() -> int:
           f"loaded in {time.perf_counter() - t0:.2f} s")
 
     dev = torch.device("cuda")
+    log2f_phase(dev)
     kern = kernel_phase(dev)
     rans_kern = rans_kernel_phase(dev)
     kern["worst"].update(rans_kern["worst"])
@@ -2141,7 +2272,7 @@ def main() -> int:
     lm_card_vs_cpu_phase(dev)
     trainer_card_vs_cpu_phase(dev)
     b9 = b9_path_phase(dev)
-    main_path_phase(dev, "uq")
+    uq = main_path_phase(dev, "uq")
     uqp = main_path_phase(dev, "uq+")
     lm = lm_main_path_phase(dev)
     torch.cuda.empty_cache()
@@ -2202,10 +2333,20 @@ def main() -> int:
         t = kern["timings"][name]["main"]
         extra = {}
         if name in ("quant_det", "quant_det_bwd"):
+            by_path = {"cifar10-lenet uq": uq["launches"][name],
+                       "cifar10-lenet uq+": uqp["launches"][name],
+                       f"table1 grid ({GRID_ROUNDS} rounds)": grid["table1_launches"][name],
+                       "table2 rand-qat": grid["launches"][name],
+                       "format ablation": fmt["launches"][name],
+                       "format ablation pareto": fmt["pareto_launches"][name],
+                       "fed_lm": lm["launches"][name],
+                       "launch.train": trainer["launches"][name]}
             extra = {"bf16": {shp: v[name] for shp, v in
                               trainer_kern["timings"]["bf16"].items()},
                      "trainer_launches": trainer["launches"][name],
-                     "trainer_device_us": trainer["device_us"].get(name)}
+                     "trainer_device_us": trainer["device_us"].get(name),
+                     "launches_by_path": by_path,
+                     "launches_all_paths": sum(by_path.values())}
         if name in FORMAT_KERNELS:
             extra = {"mlp": kern["timings"][name]["mlp"], "device_us": fmt["device_us"][
                 PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How B11 ``qat_matmul_dw``'s errors show in the federated LM cell, on the card.
 
-Run from the repository root:  python3 lm_dw_study.py
+Run from the repository root:  python3 lm_dw_study.py [--spread]
 
 The tensor-core dw is held to a bar against the f64 product (``ref.within_bar``),
 not to its twin's bits, so the cell trains to other losses than with the twin.
@@ -34,6 +34,17 @@ to the step's ``model.init``. Each seed ends with its span, the kernel's
 distance beyond it a round, and its lean; the last lines count the seeds at
 which the kernel lies beyond the span in either round.
 
+``--spread`` runs only a pre-registered spread test of the cell's round-2
+loss (``spread_study``): at each seed of ``RUN_SEEDS``, dw as shipped once,
+the exact product once, and the exact product x (1 + 1e-7 N) at the eight
+noise seeds ``SPREAD_NOISE_SEEDS``, which no earlier run used. With d = |loss
+- the exact run's loss| after round 2, a seed counts against the kernel when
+its d exceeds all eight noise runs' d (``spread_verdict``); the fault stands
+when two or more of the three seeds do (``spread_rule``), which chance alone
+gives with probability 25/729, about 3.4%. Otherwise the tensor-core dw is
+indistinguishable, on the cell's final loss, from a 1e-7 relative
+perturbation of the exact product. About 20 minutes on an H100 (30 runs).
+
 Exits non-zero without a card, if a dw call of the step misses the bar or
 puts a nonzero where the masked f64 product is zero. About 9 minutes a seed
 on an H100 (the twin's run a quarter of it) and 60 GB of device memory.
@@ -51,6 +62,37 @@ RUN_SEEDS = (0, 1, 2)  # fed_lm.run(seed=): init weights and round draws
 NOISE = 1e-7          # relative size of the multiplicative noise
 SEEDS = 3             # seeds of the noise on the exact product
 KERNEL_SEEDS = 2      # seeds of the noise on the kernel's product
+SPREAD_NOISE_SEEDS = tuple(range(3, 11))  # the spread test's noise seeds, unused before
+SPREAD_ROUND = 2      # the spread test reads this round's loss only
+SPREAD_FAULT_AT = 2   # seeds of three at which the kernel must exceed all noise runs
+
+
+def spread_verdict(kernel_d: float, noise_d) -> bool:
+    """One seed of the spread test: True when the kernel's distance from the
+    exact run exceeds every noise run's distance (strictly)."""
+    return all(kernel_d > d for d in noise_d)
+
+
+def spread_rank(kernel_d: float, noise_d) -> int:
+    """The kernel's rank among the kernel and noise distances, 1 the largest
+    (ties with a noise run count against the kernel's rank)."""
+    return 1 + sum(1 for d in noise_d if d >= kernel_d)
+
+
+def spread_rule(verdicts) -> bool:
+    """The pre-registered rule over the seeds: the fault stands when the
+    kernel exceeds all noise runs at SPREAD_FAULT_AT or more seeds."""
+    return sum(bool(v) for v in verdicts) >= SPREAD_FAULT_AT
+
+
+def spread_chance(n_noise: int = len(SPREAD_NOISE_SEEDS), n_seeds: int = 3,
+                  at: int = SPREAD_FAULT_AT) -> float:
+    """Probability that ``spread_rule`` holds by chance alone, when the
+    kernel's distance is exchangeable with the noise runs' at each seed."""
+    from math import comb
+    p = 1.0 / (n_noise + 1)
+    return sum(comb(n_seeds, k) * p ** k * (1 - p) ** (n_seeds - k)
+               for k in range(at, n_seeds + 1))
 
 
 def main() -> int:
@@ -64,6 +106,8 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    if "--spread" in sys.argv[1:]:
+        return spread_study(dev)
     verdicts = {}
     ok = True
     for seed in RUN_SEEDS:
@@ -92,19 +136,9 @@ def study(seed: int, dev):
     from repro_torch.models import registry
 
     print(f"[seed] {seed}")
+    terms, exact = _terms, _exact
     kernel = FM.qat_matmul_dw
     twin = R.qat_matmul_dw
-
-    def terms(g, x, w, beta, alpha, fmt):
-        """``(v64, route)``: the unmasked f64 product and g_alpha's route."""
-        v64 = R.quant_det(x, beta, fmt).double().t() @ g.double()
-        a = torch.clamp(alpha.reshape(()).float(), min=1e-12)
-        return v64, R._ste(w, a, torch.ones_like(w), fmt)[1].double()
-
-    def exact(g, x, w, beta, alpha, fmt=E4M3):
-        v64, route = terms(g, x, w, beta, alpha, fmt)
-        a = torch.clamp(alpha.reshape(()).float(), min=1e-12)
-        return (v64 * (w.abs() <= a)).float(), (v64 * route).sum().float()
 
     # 1. every dw call of one full-width local step
     cfg = configs.get(ARCH)
@@ -175,16 +209,7 @@ def study(seed: int, dev):
 
     # 2. the cell's losses under each dw
     def with_noise(dw, noise_seed, additive):
-        gen = torch.Generator(device=dev).manual_seed(noise_seed)
-
-        def noisy(g, x, w, beta, alpha, fmt=E4M3):
-            gw, ga = dw(g, x, w, beta, alpha, fmt)
-            z = torch.randn(gw.shape, generator=gen, device=dev)
-            if not additive:
-                return gw * (1.0 + NOISE * z), ga
-            mag = R.qat_matmul_dw_f64(g, x, w, beta, alpha, fmt)[1]
-            return (gw.double() + sigma * mag * z).float(), ga
-        return noisy
+        return _with_noise(dw, noise_seed, dev, sigma if additive else None)
 
     def shifted(g, x, w, beta, alpha, fmt=E4M3):
         gw, ga = exact(g, x, w, beta, alpha, fmt)
@@ -203,14 +228,7 @@ def study(seed: int, dev):
     losses = {}
     for label, dw in runs:
         t0 = time.perf_counter()
-        FM.qat_matmul_dw = dw
-        try:
-            out = fed_lm.run(arch=ARCH, rounds=ROUNDS, seed=seed, device=dev,
-                             log=lambda s: None)
-        finally:
-            FM.qat_matmul_dw = kernel
-        losses[label] = [r["local_loss"] for r in out]
-        torch.cuda.empty_cache()
+        losses[label] = _cell_losses(dw, seed, dev)
         print(f"[loss] dw {label}: " + " -> ".join(f"{v:.6f}" for v in losses[label])
               + f" ({time.perf_counter() - t0:.1f} s)")
     ok = ok and losses["kernel"] == losses["kernel again"]
@@ -227,6 +245,100 @@ def study(seed: int, dev):
           f"(rounds 1, 2); mean signed error {bias:.3g} of mag, net shrink share "
           f"{k['shrink'] / max(k['n'], 1):.3g}; {'ok' if ok else 'FAILED'}")
     return ok, beyond
+
+
+def _terms(g, x, w, beta, alpha, fmt):
+    """``(v64, route)``: dw's unmasked f64 product and g_alpha's route."""
+    import torch
+    from repro_torch.kernels import ref as R
+    v64 = R.quant_det(x, beta, fmt).double().t() @ g.double()
+    a = torch.clamp(alpha.reshape(()).float(), min=1e-12)
+    return v64, R._ste(w, a, torch.ones_like(w), fmt)[1].double()
+
+
+def _exact(g, x, w, beta, alpha, fmt=None):
+    """dw's exact product: the masked f64 product rounded once to f32, and
+    g_alpha in f64."""
+    import torch
+    from repro_torch.core.fp8 import E4M3
+    fmt = fmt or E4M3
+    v64, route = _terms(g, x, w, beta, alpha, fmt)
+    a = torch.clamp(alpha.reshape(()).float(), min=1e-12)
+    return (v64 * (w.abs() <= a)).float(), (v64 * route).sum().float()
+
+
+def _with_noise(dw, noise_seed: int, dev, sigma=None):
+    """``dw`` with noise drawn from ``noise_seed`` on the card: gw x (1 +
+    NOISE N), or, with ``sigma``, gw + sigma * mag * N (mag the magnitude
+    product)."""
+    import torch
+    from repro_torch.core.fp8 import E4M3
+    from repro_torch.kernels import ref as R
+    gen = torch.Generator(device=dev).manual_seed(noise_seed)
+
+    def noisy(g, x, w, beta, alpha, fmt=E4M3):
+        gw, ga = dw(g, x, w, beta, alpha, fmt)
+        z = torch.randn(gw.shape, generator=gen, device=dev)
+        if sigma is None:
+            return gw * (1.0 + NOISE * z), ga
+        mag = R.qat_matmul_dw_f64(g, x, w, beta, alpha, fmt)[1]
+        return (gw.double() + sigma * mag * z).float(), ga
+    return noisy
+
+
+def _cell_losses(dw, seed: int, dev) -> list:
+    """The LM cell's mean local loss a round with ``dw`` in B11's place."""
+    import torch
+    from repro_torch.bench import fed_lm
+    from repro_torch.kernels import fp8_matmul as FM
+    kernel = FM.qat_matmul_dw
+    FM.qat_matmul_dw = dw
+    try:
+        out = fed_lm.run(arch=ARCH, rounds=ROUNDS, seed=seed, device=dev, log=lambda s: None)
+    finally:
+        FM.qat_matmul_dw = kernel
+    torch.cuda.empty_cache()
+    return [r["local_loss"] for r in out]
+
+
+def spread_study(dev) -> int:
+    """The pre-registered spread test (module docstring): prints each seed's
+    kernel and noise distances, the kernel's rank and verdict, then the
+    rule's verdict. Exits 0 whatever the verdict; non-zero only if a run
+    fails or the kernel's cell is not finite."""
+    import math
+    from repro_torch.kernels import fp8_matmul as FM
+    kernel = FM.qat_matmul_dw
+    r = SPREAD_ROUND - 1
+    verdicts, ok = [], True
+    print(f"[spread] rule: at each seed d = |round-{SPREAD_ROUND} loss - the exact run's|; "
+          f"a seed counts when the kernel's d exceeds all {len(SPREAD_NOISE_SEEDS)} noise "
+          f"runs' (exact x (1 + {NOISE:g} N), noise seeds {list(SPREAD_NOISE_SEEDS)}); the "
+          f"fault stands at {SPREAD_FAULT_AT} or more of {len(RUN_SEEDS)} seeds (chance "
+          f"{spread_chance():.4f})")
+    for seed in RUN_SEEDS:
+        losses = {}
+        for label, dw in [("kernel", kernel), ("exact", _exact)] + [
+                (f"noise {s}", _with_noise(_exact, s, dev)) for s in SPREAD_NOISE_SEEDS]:
+            t0 = time.perf_counter()
+            losses[label] = _cell_losses(dw, seed, dev)
+            ok = ok and all(math.isfinite(v) for v in losses[label])
+            print(f"[spread] seed {seed} dw {label}: "
+                  + " -> ".join(f"{v:.6f}" for v in losses[label])
+                  + f" ({time.perf_counter() - t0:.1f} s)")
+        ex = losses["exact"][r]
+        kernel_d = abs(losses["kernel"][r] - ex)
+        noise_d = [abs(losses[f"noise {s}"][r] - ex) for s in SPREAD_NOISE_SEEDS]
+        verdicts.append(spread_verdict(kernel_d, noise_d))
+        print(f"[spread] seed {seed}: exact {ex:.6f}; kernel d {kernel_d:.6g}; noise d "
+              + ", ".join(f"{d:.6g}" for d in noise_d)
+              + f"; kernel rank {spread_rank(kernel_d, noise_d)} of {len(noise_d) + 1}; "
+              f"{'exceeds all' if verdicts[-1] else 'within the noise runs'}")
+    stands = spread_rule(verdicts)
+    print(f"[spread] the kernel exceeds all noise runs at {sum(verdicts)} of {len(verdicts)} "
+          f"seeds: the fault {'stands' if stands else 'is closed'}")
+    print(f"lm_dw_study --spread: {'ok' if ok else 'FAILED'}")
+    return 0 if ok else 1
 
 
 def _summary(row) -> str:

@@ -1,0 +1,309 @@
+#!/usr/bin/env python3
+"""What bounds the QAT pair B1 ``quant_det`` / B2 ``quant_det_bwd`` on the card.
+
+Run from the repository root:  python3 qat_probe.py [--src DIR]
+
+At the one-device trainer's bf16 activation shapes (batch 8 x 128 tokens:
+(8, 128, 2048), (8, 128, 5632), and a CE chunk's (8, 16, 2048)), at f32
+(8191, 1024) and at three of LeNet's f32 QAT sites, it prints for each
+kernel:
+
+- its device time a call (``device_us``: the self device time of every
+  CUDA kernel that 50 back-to-back calls launched, under ``torch.profiler``,
+  over 50; the inputs stay in the 50 MB L2 between calls) beside its bytes
+  bound (each input read once, each output written once, over 3.35 TB/s)
+  and the fraction of the bound it reaches; also the wall time a call of
+  back-to-back wrapper calls (``call_ms``, CUDA events), which at these
+  sizes is the host's Python and ctypes overhead, not the kernel's, and the
+  stream time a call (``stream_us``: the same calls queued behind a sleep
+  kernel, so the gaps between kernels count: a call of two kernels pays
+  the second launch);
+- the copy probe's device time: the kernel's own grid and access pattern
+  with the arithmetic removed (``out = x``; the backward ``gx = g`` with its
+  partial sums over x), and the same for one element a thread in a
+  grid-stride loop of at most 8192 blocks (the pattern of the first port of
+  these kernels);
+- the arithmetic probe's rate: each element function on values held in
+  registers, no global traffic (G elements/s over a full grid, from its
+  device time);
+- the static SASS instruction count of det_code's element functions
+  (``cuobjdump -sass`` of the built library: a one-element kernel less a
+  plain copy; the division's slow path included).
+
+With ``--src DIR`` it times the kernels of the package under ``DIR/src``
+instead (for example an unpacked parent commit), and runs only the probes
+that library has. Needs a card; prints ``{"qat_probe": ...}`` last.
+``chip_smoke.py`` calls :func:`measure` too.
+"""
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12
+SHAPES = (((8, 128, 2048), "bf16"), ((8, 128, 5632), "bf16"), ((8, 16, 2048), "bf16"),
+          ((8191, 1024), "f32"),
+          # LeNet's QAT sites at batch 32: the conv1 input, the dense input, a weight
+          ((32, 32, 32, 3), "f32"), ((32, 1024), "f32"), ((5, 5, 6, 16), "f32"))
+ARITH_ITERS = 64
+# the arithmetic probe's element functions, by the op code of repro_qat_arith_probe
+ARITH_OPS = {0: "quant_det_elem", 1: "ste_terms", 2: "quant_det_tab", 3: "ste_terms_tab"}
+# sass_elem_kernel<OP>: 0 the baseline copy, then one element function each
+SASS_OPS = {1: "quant_det_elem", 2: "ste_terms"}
+FALLBACKS: list = []   # device_us calls the profiler left without device events
+
+
+def time_ms(fn, reps: int = 7, iters: int = 50, warmup: int = 5) -> float:
+    """Median over ``reps`` of the mean time of ``iters`` back-to-back calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(stop) / iters)
+    return statistics.median(samples)
+
+
+def device_us(fn, iters: int = 50) -> float:
+    """Device time a call of ``fn``, us: the summed self device time of
+    every CUDA kernel ``iters`` calls launched (torch.profiler), over
+    ``iters``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):   # a profile now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+        if total > 0:
+            return total / iters
+        time.sleep(0.1)
+    FALLBACKS.append(getattr(fn, "__name__", "call"))
+    return stream_us(fn, iters)
+
+
+def stream_us(fn, iters: int = 50) -> float:
+    """Stream time a call of ``fn``, us: CUDA events around ``iters`` calls
+    queued behind a 20M-cycle sleep kernel, so the device runs them back to
+    back with no host gap; every kernel of a call and the gaps between
+    kernels count (a call of two kernels pays its second launch)."""
+    import torch
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) * 1e3 / iters
+
+
+def bytes_bound_ms(n: int, esize: int, bwd: bool) -> float:
+    """B1 reads x and writes out; B2 reads x and g, writes gx and g_alpha;
+    both read alpha."""
+    n_bytes = (3 * n * esize + 8) if bwd else (2 * n * esize + 4)
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def sass_counts(lib_path: Path) -> dict:
+    """Static SASS instructions of every kernel in the library whose name
+    holds ``quant_det`` or ``sass_elem``, and of each element function (its
+    one-element kernel less the plain copy's)."""
+    cuobjdump = next((str(p) for p in (Path("/usr/local/cuda/bin/cuobjdump"),)
+                      if p.exists()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/\s+\S", line):
+            counts[name] += 1
+    ours = {k: v for k, v in counts.items() if "quant_det" in k or "sass_elem" in k}
+    elem = {}
+    base = next((v for k, v in ours.items() if "sass_elem_kernelILi0E" in k), None)
+    for op, label in SASS_OPS.items():
+        hit = next((v for k, v in ours.items() if f"sass_elem_kernelILi{op}E" in k), None)
+        if hit is not None and base is not None:
+            elem[label] = hit - base
+    return {"kernels": ours, "element_functions": elem}
+
+
+def measure(dev, K, verbose: bool = True) -> dict:
+    """Times, bounds, probes and SASS counts of B1/B2 with the wrapper module
+    ``K`` (``repro_torch.kernels.fp8_quant`` of the tree under test)."""
+    import ctypes
+
+    import torch
+
+    lib = K.load()
+    p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    has_probe = hasattr(lib, "repro_quant_det_probe")
+    if has_probe:
+        lib.repro_quant_det_probe.argtypes = [i32, p, p, i64, i32, p]
+        lib.repro_quant_det_bwd_probe.argtypes = [i32, p, p, p, p, p, i64, i32, p]
+        lib.repro_qat_arith_probe.argtypes = [i32, p, p, i32, i32, i32, i32, f32, p]
+        for fn in (lib.repro_quant_det_probe, lib.repro_quant_det_bwd_probe,
+                   lib.repro_qat_arith_probe):
+            fn.restype = ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    g = torch.Generator().manual_seed(22)
+    res = {"shapes": {}}
+    for shape, dt in SHAPES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = (torch.randn(shape, generator=g) * 1.5).to(dev).to(dtype)
+        gr = (torch.randn(shape, generator=g).abs().to(dev) * torch.sign(x.float())).to(dtype)
+        a = torch.tensor(4.0, device=dev)
+        n, esize = x.numel(), x.element_size()
+        row = {}
+        for name, fn, bwd in (("quant_det", lambda: K.quant_det(x, a), False),
+                              ("quant_det_bwd", lambda: K.quant_det_bwd(x, a, gr), True)):
+            us = device_us(fn)
+            b_ms = bytes_bound_ms(n, esize, bwd)
+            row[name] = {"device_us": us, "bound_us": b_ms * 1e3,
+                         "fraction": b_ms * 1e3 / us, "stream_us": stream_us(fn),
+                         "call_ms": time_ms(fn)}
+        if has_probe:
+            out, gx = torch.empty_like(x), torch.empty_like(x)
+            part = torch.zeros(1 << 16, dtype=torch.float32, device=dev)  # ticket at 0
+            ga = torch.empty((), dtype=torch.float32, device=dev)
+            bf = int(dtype == torch.bfloat16)
+            for kind, label in ((0, "copy"), (1, "copy_one_a_thread")):
+                def fwd(kind=kind):
+                    rc = lib.repro_quant_det_probe(kind, x.data_ptr(), out.data_ptr(), n, bf,
+                                                   stream())
+                    assert rc == 0, f"copy probe: CUDA error {rc}"
+
+                def bwd(kind=kind):
+                    rc = lib.repro_quant_det_bwd_probe(kind, x.data_ptr(), gr.data_ptr(),
+                                                       gx.data_ptr(), part.data_ptr(),
+                                                       ga.data_ptr(), n, bf, stream())
+                    assert rc == 0, f"copy probe: CUDA error {rc}"
+                row["quant_det"][label + "_us"] = device_us(fwd)
+                row["quant_det_bwd"][label + "_us"] = device_us(bwd)
+        res["shapes"][f"{tuple(shape)} {dt}"] = row
+        if verbose:
+            for name, r in row.items():
+                probes = "".join(f", {k[:-3]} probe {v:.3f} us" for k, v in r.items()
+                                 if k.startswith("copy"))
+                print(f"[qat-probe] {name:13s} {str(tuple(shape)):16s} {dt}: device "
+                      f"{r['device_us']:.3f} us a call, bytes bound {r['bound_us']:.3f} us, "
+                      f"{100 * r['fraction']:.1f}% of it{probes}; stream {r['stream_us']:.3f} "
+                      f"us a call; wall a call of back-to-back calls {r['call_ms'] * 1e3:.2f} us")
+    if has_probe:
+        from repro_torch.core.fp8 import E4M3
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = sms * 8
+        sink = torch.empty(blocks * 256, dtype=torch.float32, device=dev)
+        a = torch.tensor(4.0, device=dev)
+        rates = {}
+        for op, label in ARITH_OPS.items():
+            def run(op=op):
+                return lib.repro_qat_arith_probe(op, a.data_ptr(), sink.data_ptr(), blocks,
+                                                 ARITH_ITERS, E4M3.exp, E4M3.mant,
+                                                 E4M3.mant_const, stream())
+            if run() != 0:      # an op this library does not have
+                torch.cuda.synchronize()
+                continue
+            us = device_us(run, iters=20)
+            rates[label] = blocks * 256 * ARITH_ITERS / (us * 1e-6) / 1e9
+            if verbose:
+                print(f"[qat-probe] arithmetic probe {label}: {rates[label]:.1f} G elements/s "
+                      f"({blocks} blocks x 256 threads x {ARITH_ITERS}, E4M3, alpha 4)")
+        res["arith_g_elements_per_s"] = rates
+        # the table's cost alone: the probe with no evaluations, table (op 2)
+        # against none (op 0), on the grid B1 takes at (8, 128, 2048) bf16
+        prologue = {}
+        for op, label in ((0, "alpha_and_bias"), (2, "with_table")):
+            def bare(op=op):
+                return lib.repro_qat_arith_probe(op, a.data_ptr(), sink.data_ptr(), 256, 0,
+                                                 E4M3.exp, E4M3.mant, E4M3.mant_const,
+                                                 stream())
+            if bare() == 0:
+                prologue[label] = device_us(bare)
+        res["prologue_us"] = prologue
+        if verbose and prologue:
+            print(f"[qat-probe] a block's prologue (256 blocks, no elements): alpha and bias "
+                  f"{prologue.get('alpha_and_bias', 0.0):.3f} us, with the scale table "
+                  f"{prologue.get('with_table', 0.0):.3f} us a launch")
+        try:
+            res["sass"] = sass_counts(K.library_path())
+        except (OSError, subprocess.SubprocessError) as e:
+            res["sass"] = f"not measured: {e}"
+        if verbose:
+            print(f"[qat-probe] static SASS instructions: {res['sass']}")
+    res["profiler_fallbacks"] = len(FALLBACKS)
+    if FALLBACKS and verbose:
+        print(f"[qat-probe] {len(FALLBACKS)} timings by CUDA events behind a sleep kernel "
+              "(the profiler recorded no device events five times)")
+    return res
+
+
+def log2f_monotone(dev, K) -> dict:
+    """The scale table's premise on this card: log2f non-decreasing over
+    every f32 pattern from +0 to FLT_MAX (``repro_log2f_monotone``, one
+    launch). Returns the count of decreases and the first pattern of one."""
+    import ctypes
+
+    import torch
+
+    lib = K.load()
+    lib.repro_log2f_monotone.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.repro_log2f_monotone.restype = ctypes.c_int
+    bad = torch.tensor([0, -1], dtype=torch.int64, device=dev)   # -1: all ones
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rc = lib.repro_log2f_monotone(bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    stop.record()
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"log2f monotonicity check: CUDA error {rc}")
+    n_bad, first = (int(v) for v in bad.cpu())
+    return {"decreases": n_bad, "first": None if n_bad == 0 else first & 0xFFFFFFFF,
+            "patterns": 0x7F7FFFFF + 1, "ms": start.elapsed_time(stop)}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("qat_probe: no CUDA device", file=sys.stderr)
+        return 1
+    root = Path(__file__).resolve().parent
+    if "--src" in sys.argv[1:]:
+        root = Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import fp8_quant as K
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    print(f"[qat-probe] kernels of {root}")
+    K.build()
+    res = measure(torch.device("cuda"), K)
+    print(json.dumps({"qat_probe": res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -26,9 +27,14 @@ struct Fmt {
   float mant_const;  // log2(2 - 2^-mant), rounded to f32 by the wrapper
 };
 
-// b = 2^e - log2(a) + log2(2 - 2^-m) - 1, left to right as fp8_quant.py:44
+// b = 2^e - log2(a) + log2(2 - 2^-m) - 1, left to right as fp8_quant.py:44,
+// from la = log2f(a)
+__device__ __forceinline__ float bias_of_log(float la, const Fmt& f) {
+  return (((float)(1 << f.exp) - la) + f.mant_const) - 1.0f;
+}
+
 __device__ __forceinline__ float bias(float a, const Fmt& f) {
-  return (((float)(1 << f.exp) - log2f(a)) + f.mant_const) - 1.0f;
+  return bias_of_log(log2f(a), f);
 }
 
 // jnp.clip(x, -a, a)
@@ -73,6 +79,182 @@ __device__ __forceinline__ float quant_det_elem(float x, float a, float b,
                                                 const Fmt& f) {
   const DetCode c = det_code(x, a, b, f);
   return c.s * c.n;
+}
+
+// --- B1/B2's per-call scale table --------------------------------------------
+//
+// det_code's p = max(floor(log2f(|xc|) + b), 1) is a non-decreasing function
+// of |xc| wherever log2f is non-decreasing over the positive finite f32
+// (chip_smoke.py checks that on the card, every one of the 2^31 patterns), and
+// its s = 2^((p - b) - m) takes one value a p. So for one clip a (bias b) both
+// follow from |xc| by compares: T_k, the least positive f32 v with
+// floor(log2f(v) + b) >= k, for k = 2 .. P (P = p at |xc| = a, at most 2^e),
+// found with the same log2f (find_thresholds); p(v) = 1 + #{k : v >= T_k}.
+// Within one binade [2^E, 2^(E+1)) of |xc| p takes at most two values, so the
+// table keeps, a binade from T_2's binade less one up to a's, {the one
+// threshold in it (or +inf), s below it, s at or above it}. A lookup is an
+// exponent-field index, one shared-memory float4 and a compare. (A row for
+// every exponent field, which needs no clamp, took longer to build than it
+// saved; two 4-byte loads, s after the compare, were slower too.) Every s in
+// the table is scale(p, b, f) itself, so s, and everything computed from it,
+// is det_code's to the bit. Where the table cannot hold the clip (two
+// thresholds in a binade, a subnormal T_2, more than kTabMax binades or
+// kThrMax thresholds) ``ok`` is 0 and the caller takes det_code.
+
+constexpr int kTabMax = 40;   // binades of a table: 2^e + 3 for e <= 5 fits
+constexpr int kThrMax = 32;   // thresholds T_2 .. T_P: P <= 2^e <= 33
+
+struct ScaleTable {
+  float4 e[kTabMax];   // binade i (exponent field base + i): {thr, s_lo, s_hi, 0}
+  float t[kThrMax];    // T_2 .. T_P
+  int base;            // exponent field of binade 0
+  int n;               // binades held
+  int ok;              // 0: the caller takes det_code
+};
+
+// floor(log2f(v) + b): exponent() without its max, the function the
+// thresholds cut
+__device__ __forceinline__ float p_raw(float v, float b) {
+  return floorf(log2f(v) + b);
+}
+
+// The least positive finite f32 v with p_raw(v, b) >= k (p_raw(FLT_MAX) >= k
+// given): a bracket of +-256 ULP around 2^(k - b), widened to every positive
+// pattern if it does not hold, then bisection on the bit patterns. Exact
+// where p_raw is non-decreasing; the bracket only saves steps. One thread;
+// find_thresholds' slow path.
+__device__ __forceinline__ float threshold(float k, float b) {
+  const uint32_t top = 0x7F7FFFFFu;  // FLT_MAX
+  const uint32_t c = __float_as_uint(fminf(exp2f(k - b), __uint_as_float(top)));
+  uint32_t lo = c > 256u ? c - 256u : 0u;
+  uint32_t hi = c < top - 256u ? c + 256u : top;
+  if (!(p_raw(__uint_as_float(lo), b) < k && p_raw(__uint_as_float(hi), b) >= k)) {
+    lo = 0u;   // +0: log2f is -inf, below every k
+    hi = top;
+  }
+  while (hi - lo > 1u) {   // p_raw(lo) < k <= p_raw(hi)
+    const uint32_t mid = lo + (hi - lo) / 2u;
+    if (p_raw(__uint_as_float(mid), b) >= k) {
+      hi = mid;
+    } else {
+      lo = mid;
+    }
+  }
+  return __uint_as_float(hi);
+}
+
+// The first probe at or above k among a half-warp's 32: lane l probes
+// p0 + l and p0 + 16 + l (two independent log2f). Returns -1 where none
+// reaches k or the first does (the step is not inside), else its offset.
+__device__ __forceinline__ int step_in_window(uint32_t p0, bool active, float k, float b) {
+  const int l = threadIdx.x & 15;
+  const int shift = threadIdx.x & 16;   // this half-warp's bits of a ballot
+  const bool lo = active && p_raw(__uint_as_float(p0 + l), b) >= k;
+  const bool hi = active && p_raw(__uint_as_float(p0 + 16u + l), b) >= k;
+  const uint32_t m = ((__ballot_sync(0xFFFFFFFFu, lo) >> shift) & 0xFFFFu) |
+                     (((__ballot_sync(0xFFFFFFFFu, hi) >> shift) & 0xFFFFu) << 16);
+  return (m == 0u || (m & 1u)) ? -1 : __ffs(m) - 1;
+}
+
+// T_k for k = 2 .. n_thr + 1 into thr[], a half-warp a threshold (sixteen
+// at a time): 32 probes, one ULP apart around 2^(k - b), find T_k where the
+// step of p_raw lies within 27 ULP below to 4 above it (one log2f deep; the
+// sum log2f(v) + b reaches k a few ULP of v before 2^(k - b) does); else
+// threshold()'s bisection. Where p_raw is non-decreasing the first probe
+// that reaches k, after one that does not, is T_k. Every thread of the
+// block calls it; the loop's trip count is the block's.
+__device__ __forceinline__ void find_thresholds(float* thr, int n_thr, float b) {
+  const uint32_t top = 0x7F7FFFFFu;
+  for (int t0 = 0; t0 < n_thr; t0 += kThreads / 16) {
+    const int ti = t0 + (int)(threadIdx.x >> 4);
+    const bool active = ti < n_thr;
+    const float k = (float)(ti + 2);
+    const uint32_t c = active ? __float_as_uint(fminf(exp2f(k - b), __uint_as_float(top)))
+                              : 1u << 20;
+    const bool room = c >= 32u && c <= top - 32u;
+    const uint32_t p0 = c - 27u;
+    const int j = step_in_window(p0, active && room, k, b);
+    if (active && (threadIdx.x & 15) == 0) {
+      thr[ti] = room && j >= 0 ? __uint_as_float(p0 + (uint32_t)j) : threshold(k, b);
+    }
+  }
+}
+
+// Fill ``t`` for clip a, la = log2f(a), bias b; every thread of the block
+// calls it (it holds two __syncthreads and ends with one). The half-warps
+// find the thresholds, then thread i fills binade i: p below it is one more
+// than the thresholds at or under its bottom (a bisection of the sorted
+// T_k), and the next threshold, if under its top, is the one inside.
+__device__ __forceinline__ void scale_table_build(ScaleTable& t, float a, float la, float b,
+                                                  const Fmt& f) {
+  const float pa = floorf(la + b);                       // exponent(a, b) before its max
+  const int n_thr = (pa > 1.0f ? (int)pa : 1) - 1;       // P - 1, P = p at |xc| = a
+  const int tid = threadIdx.x;
+  if (tid == 0) t.ok = n_thr <= kThrMax ? 1 : 0;
+  find_thresholds(t.t, n_thr < kThrMax ? n_thr : kThrMax, b);
+  __syncthreads();
+  const int ea = (int)(__float_as_uint(a) >> 23);          // a's binade
+  const int e2 = n_thr > 0 ? (int)(__float_as_uint(t.t[0]) >> 23) : ea;
+  const int base = e2 - 1;                                   // T_2's binade less one
+  const int n = ea - base + 1;
+  const bool fits = base >= 0 && n <= kTabMax && n_thr <= kThrMax;
+  if (tid == 0) {
+    t.base = base;
+    t.n = n;
+    if (!fits) t.ok = 0;
+  }
+  if (fits && tid < n) {
+    const int e = base + tid;
+    const float lo = e == 0 ? 0.0f : __uint_as_float((uint32_t)e << 23);
+    const float hi = __uint_as_float((uint32_t)(e + 1) << 23);
+    int j = 0, top = n_thr;                                  // first T_k above lo
+    while (j < top) {
+      const int mid = (j + top) >> 1;
+      if (t.t[mid] > lo) {
+        top = mid;
+      } else {
+        j = mid + 1;
+      }
+    }
+    const bool in1 = j < n_thr && t.t[j] < hi;
+    if (in1 && j + 1 < n_thr && t.t[j + 1] < hi) t.ok = 0;   // two in one binade
+    const float thr = in1 ? t.t[j] : __uint_as_float(0x7F800000u);   // +inf: none inside
+    t.e[tid] = make_float4(thr, scale((float)(j + 1), b, f), scale((float)(j + 2), b, f),
+                           0.0f);
+  }
+  __syncthreads();
+}
+
+// s of det_code at the clipped xc, from the table
+__device__ __forceinline__ float table_scale(const ScaleTable& t, float xc) {
+  const uint32_t m = __float_as_uint(xc) & 0x7FFFFFFFu;    // |xc|'s bits
+  const int i = min(max((int)(m >> 23) - t.base, 0), t.n - 1);
+  const float4 r = t.e[i];
+  return __uint_as_float(m) >= r.x ? r.z : r.y;
+}
+
+// quant_det_elem through the table: the same s, so the same bits
+__device__ __forceinline__ float quant_det_tab(float x, float a, const ScaleTable& t) {
+  const float xc = clip(x, a);
+  const float s = table_scale(t, xc);
+  return s * rintf(xc / s);
+}
+
+// ste_terms through the table: the same s, so the same inside, y and q, and
+// the same bits of gx = g * inside. The route's last division by a is a
+// product by inv_a = 1 / a (once a block): each g_alpha term within a ULP
+// of ste_terms', well inside GA_RTOL of the sum.
+__device__ __forceinline__ void ste_terms_tab(float x, float a, float inv_a,
+                                              const ScaleTable& t, float* inside,
+                                              float* route) {
+  const float in = fabsf(x) <= a ? 1.0f : 0.0f;
+  const float xc = clip(x, a);
+  const float s = table_scale(t, xc);
+  const float y = xc / s;
+  const float q = rintf(y);
+  const float sg = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  *inside = in;
+  *route = sg * (1.0f - in) + ((q - y) * s) * inv_a;
 }
 
 // I/O in f32 or bf16, arithmetic in f32: a bf16 activation is widened
@@ -184,6 +366,98 @@ __device__ __forceinline__ float decode_code(int code, float a, const Fmt& f) {
   const float s = exp2f(((float)p_eff - b) - (float)f.mant);
   const float mag = (float)v * s;
   return sign == 1 ? -mag : mag;
+}
+
+// 16-byte vectors of f32 (4) or bf16 (8) elements, widened to f32 and
+// rounded back as to_f32 / from_f32 do (bf16: the high half of an f32;
+// round to nearest even).
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(const uint4& r, float (&v)[kN]) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ static uint4 pack(const float (&v)[kN]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(const uint4& r, float (&v)[kN]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+  __device__ static uint32_t pair(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ static uint4 pack(const float (&v)[kN]) {
+    return make_uint4(pair(v[0], v[1]), pair(v[2], v[3]), pair(v[4], v[5]), pair(v[6], v[7]));
+  }
+};
+
+// Where a streaming kernel's 16-byte vectors start: ``head`` elements before
+// the first 16-byte boundary of p0, then ``nvec`` whole vectors; the rest
+// are the tail. Every pointer in ``ps`` must sit at p0's offset mod 16, or
+// the whole range is head (the one-element path).
+struct Split {
+  long long head;
+  long long nvec;
+};
+inline Split split_for(long long n, int esize, std::initializer_list<const void*> ps) {
+  const uintptr_t mis = (uintptr_t)*ps.begin() % 16u;
+  for (const void* p : ps) {
+    if ((uintptr_t)p % 16u != mis) return {n, 0};
+  }
+  long long head = (long long)((16u - mis) % 16u) / esize;
+  if (head > n) head = n;
+  return {head, (n - head) / (16 / esize)};
+}
+
+// The current card's SMs and the blocks of kThreads it holds at once for
+// ``kernel``, queried once a device into the caller's ``cache``
+// (kMaxDevices zeroed entries, one array a kernel).
+constexpr int kMaxDevices = 64;
+struct Residency {
+  int sms;
+  int blocks;
+};
+template <typename K>
+inline Residency residency(K kernel, Residency* cache) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) dev = 0;
+  if (cache[dev].blocks == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    cache[dev] = {sms > 0 ? sms : 1, sms * per_sm > 0 ? sms * per_sm : 1};
+  }
+  return cache[dev];
+}
+
+// Blocks for a streaming kernel over ``batches`` units of work: about
+// ``per_thread`` units a thread, so that each thread's loads of the next
+// unit overlap its arithmetic on this one; but one unit a thread where that
+// would leave SMs without a block; at most the blocks the card holds.
+inline int stream_blocks(long long batches, long long per_thread, const Residency& r) {
+  long long threads = (batches + per_thread - 1) / per_thread;
+  const long long one_each = batches < (long long)r.sms * kThreads ? batches
+                                                                    : (long long)r.sms * kThreads;
+  if (threads < one_each) threads = one_each;
+  const long long want = (threads + kThreads - 1) / kThreads;
+  return (int)(want < 1 ? 1 : (want < r.blocks ? want : r.blocks));
 }
 
 inline int grid_for(long long n) {

@@ -1,12 +1,13 @@
-// Deterministic two-pass sum of a per-element term to one scalar, shared by
-// the STE backward kernels (quant_det_bwd.cu, quant_rand.cu), and the block
-// max of the amax encodes (quant_pack_amax.cu).
+// Deterministic sum of a per-element term to one scalar, shared by the STE
+// backward kernels (quant_det_bwd.cu in one launch, quant_rand.cu in two),
+// and the block max of the amax encodes (quant_pack_amax.cu).
 //
 // The TPU kernels accumulated the scalar clip cotangent in a (1, 1) block
 // across their sequential grid. Blocks here run in no order, so pass 1
-// writes one partial sum per block (fixed-order tree in shared memory) and
-// pass 2 reduces the partials in one block. The grid size depends only on
-// n, so the result is the same on every run, without atomics.
+// writes one partial sum per block (a fixed-order tree) and pass 2 reduces
+// the partials in one block: a second launch (B6), or the last block of the
+// same launch (B2, fold_by_last_block). The grid size depends only on n and
+// the card, so the result is the same on every run; no sum takes an atomic.
 #pragma once
 
 #include "fp8_common.cuh"
@@ -50,6 +51,60 @@ __device__ __forceinline__ void fold_partials(const float* __restrict__ partial,
   for (int i = threadIdx.x; i < n_parts; i += kThreads) acc += partial[i];
   const float total = block_sum(acc, sh);
   if (threadIdx.x == 0) out[0] = total;
+}
+
+// The block's sum of v in a fixed order with fewer barriers than block_sum:
+// a shuffle tree in each warp (lane i takes lane i + 16, 8, 4, 2, 1), then
+// warp 0 the same over the eight warp sums. Valid in thread 0. ``sh`` holds
+// kThreads / 32 floats.
+__device__ __forceinline__ float block_sum_shfl(float v, float* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kThreads / 32 ? sh[lane] : 0.0f;
+#pragma unroll
+    for (int o = kThreads / 64; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  }
+  return v;
+}
+
+// Pass 2 in the same launch (B2): thread 0 of each block stores
+// the block's total (block_sum_shfl) into partial[blockIdx.x] and takes a
+// ticket (an acq_rel atomic: the partial is visible before the ticket
+// moves); the block that takes the last ticket folds every partial into
+// out[0] (each thread's strided share, then block_sum_shfl; the acquire and
+// the barrier make every partial visible to its threads) and sets the
+// ticket back to 0 for the next launch. Which block is last does not change
+// the sum. The launch's tail (a ticket round trip, then one block reading
+// every partial) grows with the blocks, so callers keep grids small where n
+// is. ``ticket`` is a zeroed word that launches on one stream share; two
+// launches that overlap in time (two streams, or calls captured into a
+// graph and replayed concurrently) must not share it. Every thread of the
+// block calls it; ``sh`` holds kThreads / 32 floats.
+__device__ __forceinline__ void fold_by_last_block(float v, float* __restrict__ partial,
+                                                   unsigned int* __restrict__ ticket,
+                                                   float* __restrict__ out, float* sh) {
+  __shared__ int last;
+  const float total = block_sum_shfl(v, sh);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = total;
+    unsigned int t;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(t) : "l"(ticket) : "memory");
+    last = t == gridDim.x - 1u;
+  }
+  __syncthreads();
+  if (!last) return;
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) acc += __ldcg(partial + i);
+  const float sum = block_sum_shfl(acc, sh);
+  if (threadIdx.x == 0) {
+    out[0] = sum;
+    *ticket = 0u;
+  }
 }
 
 }  // namespace fp8

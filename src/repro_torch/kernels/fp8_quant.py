@@ -28,7 +28,8 @@ plain C interface into ``build/repro_torch_kernels/`` at the repository root
 and ``ctypes`` loads it. Nothing is built or imported at module import.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current stream, raises if the C
+outputs with ``torch.empty`` (``quant_det_bwd`` also reuses one zeroed
+workspace a device, ``_bwd_workspace``), launches on the current stream, raises if the C
 function returns a non-zero ``cudaGetLastError()``, and adds one to
 ``LAUNCHES[name]``. A tensor on the CPU takes the kernel's plain twin in
 ``kernels.ref`` instead (that is how the CPU tests run); any other device
@@ -145,6 +146,7 @@ def load() -> ctypes.CDLL:
         fmt_args = [i32, i32, f32]
         lib.repro_quant_det.argtypes = [p, p, p, i64, i32, *fmt_args, p]
         lib.repro_quant_det_bwd_blocks.argtypes = [i64]
+        lib.repro_quant_det_bwd_workspace.argtypes = []
         lib.repro_quant_det_bwd.argtypes = [p, p, p, p, p, p, i64, i32, *fmt_args, p]
         lib.repro_quant_pack_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
         lib.repro_unpack_tiles.argtypes = [p, p, i32, p, i64, *fmt_args, p]
@@ -168,7 +170,7 @@ def load() -> ctypes.CDLL:
                                             *fmt_args, p]
         lib.repro_qat_matmul_dw.argtypes = lib.repro_qat_matmul_dx.argtypes
         for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_blocks,
-                   lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
+                   lib.repro_quant_det_bwd_workspace, lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
                    lib.repro_unpack_tiles, lib.repro_fake_quant_tiles,
                    lib.repro_quant_rand, lib.repro_quant_rand_bwd,
                    lib.repro_quant_pack_sub_tiles, lib.repro_unpack_sub_tiles,
@@ -289,14 +291,30 @@ def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
     _check_scalar_alpha(alpha)
     lib = load()
     gx = torch.empty_like(x)
-    partial = torch.empty(lib.repro_quant_det_bwd_blocks(x.numel()),
-                          dtype=torch.float32, device=x.device)
     ga = torch.empty((), dtype=torch.float32, device=x.device)
     rc = lib.repro_quant_det_bwd(
         x.data_ptr(), alpha.data_ptr(), g.data_ptr(), gx.data_ptr(),
-        partial.data_ptr(), ga.data_ptr(), x.numel(), bf16, *_fmt_args(fmt), _stream())
+        _bwd_workspace(x.device).data_ptr(), ga.data_ptr(), x.numel(), bf16,
+        *_fmt_args(fmt), _stream())
     _launched(rc, "quant_det_bwd")
     return gx, ga
+
+
+_WORKSPACES: dict = {}
+
+
+def _bwd_workspace(device: torch.device) -> torch.Tensor:
+    """B2's workspace on ``device``, allocated and zeroed at its first call:
+    a ticket word that every launch leaves at 0, then the block partials
+    (``csrc/quant_det_bwd.cu``). Calls on one stream share it; it assumes
+    no two B2 launches on one device overlap in time (one stream, no graph
+    replays running concurrently)."""
+    ws = _WORKSPACES.get(device)
+    if ws is None:
+        ws = torch.zeros(load().repro_quant_det_bwd_workspace(), dtype=torch.float32,
+                         device=device)
+        _WORKSPACES[device] = ws
+    return ws
 
 
 def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,

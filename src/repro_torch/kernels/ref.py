@@ -81,6 +81,82 @@ def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
     return gx.to(x.dtype), torch.sum(route)
 
 
+_TOP = 0x7F7FFFFF          # FLT_MAX's bit pattern
+_TAB_MAX, _THR_MAX = 40, 32   # csrc/fp8_common.cuh kTabMax, kThrMax
+
+
+def _f32(bits: torch.Tensor) -> torch.Tensor:
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _bits(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.float32).view(torch.int32).to(torch.int64)
+
+
+def _p_raw(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """floor(log2(v) + b) in f32: ``_scale_p``'s p without its max."""
+    return torch.floor(torch.log2(v) + b)
+
+
+def scale_thresholds(alpha: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """The thresholds of ``csrc/fp8_common.cuh::find_thresholds`` for k = 2
+    .. P: the least positive f32 v with floor(log2(v) + b) >= k, with this
+    device's log2. Found here by bisection over f32 bit patterns from a
+    +-256 ULP bracket around 2^(k - b) (every positive pattern where the
+    bracket fails), as the kernels' slow path ``threshold`` does; their fast
+    path probes 32 ULP around 2^(k - b) (then wider) and finds the same
+    least v wherever log2 is non-decreasing."""
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    b = _bias(a, fmt)
+    p_top = int(torch.clamp(_p_raw(a, b), min=1.0))
+    k = torch.arange(2, p_top + 1, dtype=torch.float32, device=a.device)
+    c = _bits(torch.clamp(torch.exp2(k - b), max=_f32(torch.tensor(_TOP))))
+    lo = torch.where(c > 256, c - 256, 0)
+    hi = torch.where(c < _TOP - 256, c + 256, _TOP)
+    held = (_p_raw(_f32(lo), b) < k) & (_p_raw(_f32(hi), b) >= k)
+    lo, hi = torch.where(held, lo, 0), torch.where(held, hi, _TOP)
+    while bool((hi - lo > 1).any()):
+        mid = lo + (hi - lo) // 2
+        up = (_p_raw(_f32(mid), b) >= k) & (hi - lo > 1)
+        down = ~up & (hi - lo > 1)
+        hi, lo = torch.where(up, mid, hi), torch.where(down, mid, lo)
+    return _f32(hi)
+
+
+def scale_table(alpha: torch.Tensor, fmt: FP8Format = E4M3):
+    """Twin of ``csrc/fp8_common.cuh::scale_table_build``: ``(base, thr,
+    p_lo, ok)``, a row per binade of |xc| from T_2's binade less one up to
+    alpha's (exponent fields base, base + 1, ...): the threshold inside it
+    (+inf if none) and p below it (the kernels keep s = 2^(p - b - m) below
+    and at or above it); ``ok`` False where the kernels fall back to
+    det_code."""
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    b = _bias(a, fmt)
+    thr = scale_thresholds(alpha, fmt)
+    ea = int(_bits(a)) >> 23
+    base = (int(_bits(thr[0])) >> 23 if thr.numel() else ea) - 1
+    n = ea - base + 1
+    ok = base >= 0 and n <= _TAB_MAX and thr.numel() <= _THR_MAX
+    e = torch.arange(base, base + n, dtype=torch.int64, device=a.device).clamp(min=0)
+    lo = torch.where(e == 0, 0.0, _f32(e << 23))
+    hi = _f32((e + 1) << 23)
+    below = (thr[None, :] <= lo[:, None]).sum(dim=1)
+    inside = (thr[None, :] > lo[:, None]) & (thr[None, :] < hi[:, None])
+    ok = ok and bool((inside.sum(dim=1) <= 1).all())
+    t_in = torch.where(inside, thr[None, :], torch.inf).amin(dim=1) if thr.numel() \
+        else torch.full((n,), torch.inf, device=a.device)
+    return base, t_in, (1 + below).to(torch.float32), ok
+
+
+def table_p(xc: torch.Tensor, table) -> torch.Tensor:
+    """det_code's p at the clipped ``xc`` from a ``scale_table``, looked up
+    as ``csrc/fp8_common.cuh::table_scale`` looks up its s."""
+    base, thr, p_lo, _ = table
+    m = _bits(xc) & 0x7FFFFFFF
+    i = ((m >> 23) - base).clamp(0, thr.numel() - 1)
+    return p_lo[i] + (_f32(m) >= thr[i]).to(torch.float32)
+
+
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     """``(h * c) mod 2^32`` for 0 <= h, c < 2^32 without int64 overflow."""
     lo = h * (c & 0xFFFF)

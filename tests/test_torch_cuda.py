@@ -42,10 +42,16 @@ def _key(dev):
     return torch.tensor([7, 0xFFFFFFF0], dtype=torch.int64).to(torch.uint32).to(dev)
 
 
-@pytest.mark.parametrize("shape", [
+# every LeNet QAT site and weight shape, the wire plane, a multi-block ragged
+# shape, and odd lengths around the 16-byte vectors: a lone element, one
+# vector less and more one, a ragged tail, and 2^21 + 3 (the scale table)
+QAT_PAIR_SHAPES = [
     (32, 32, 32, 3), (32, 16, 16, 6), (32, 1024), (32, 120), (32, 84),
     (5, 5, 3, 6), (5, 5, 6, 16), (1024, 120), (120, 84), (84, 10),
-    (135, 1024), (8191, 1024)])
+    (135, 1024), (8191, 1024), (1,), (7,), (8,), (9,), (4097,), (2 ** 21 + 3,)]
+
+
+@pytest.mark.parametrize("shape", QAT_PAIR_SHAPES)
 def test_quant_det_pair_bitwise_against_twins(dev, shape):
     x = _randn(shape, 1, 0.2, dev)
     g = _randn(shape, 2, 1.0, dev).abs() * torch.sign(x)  # g_alpha terms do not cancel
@@ -55,6 +61,62 @@ def test_quant_det_pair_bitwise_against_twins(dev, shape):
     rgx, rga = ref.quant_det_bwd(x, a, g)
     assert torch.equal(gx, rgx)
     np.testing.assert_allclose(float(ga), float(rga), rtol=1e-5)
+    gx2, ga2 = fp8_quant.quant_det_bwd(x, a, g)
+    assert torch.equal(gx2, gx) and torch.equal(ga2, ga)   # the same grid, the same sum
+
+
+@pytest.mark.parametrize("n", [7, 4097, 2 ** 21 + 3])
+@pytest.mark.parametrize("offsets", [(1, 3), (5, 0), (0, 7), (6, 2), (4, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_det_pair_on_misaligned_views(dev, n, offsets, dtype):
+    """Views 1-7 elements into their storage, x and g misaligned differently
+    (the one-element path), or alike (the vector path from a ragged head)."""
+    ox, og = offsets
+    x = (_randn((n + 8,), 3, 1.5, dev).to(dtype))[ox:ox + n]
+    g = (_randn((n + 8,), 4, 1.0, dev).abs().to(dtype))[og:og + n]
+    g.mul_(torch.sign(x))
+    a = x.float().abs().max() * 0.8
+    assert torch.equal(fp8_quant.quant_det(x, a), ref.quant_det(x, a))
+    gx, ga = fp8_quant.quant_det_bwd(x, a, g)
+    rgx, rga = ref.quant_det_bwd(x, a, g)
+    assert torch.equal(gx, rgx)
+    np.testing.assert_allclose(float(ga), float(rga), rtol=1e-5)
+    gx2, ga2 = fp8_quant.quant_det_bwd(x, a, g)
+    assert torch.equal(gx2, gx) and torch.equal(ga2, ga)
+
+
+@pytest.mark.parametrize("fmt", [E5M2, FP4_E2M1, FP4_E3M0])
+@pytest.mark.parametrize("alpha", [0.0731, 2.7, 37.0])
+def test_quant_det_pair_scale_table_at_every_format(dev, fmt, alpha):
+    """From 2^20 elements on, B1/B2 take s from the per-call scale table:
+    bitwise det_code's at every format's exponent steps."""
+    x = _randn(((1 << 20) + 5,), 5, alpha / 3, dev)
+    g = _randn(((1 << 20) + 5,), 6, 1.0, dev).abs() * torch.sign(x)
+    a = torch.tensor(alpha, device=dev)
+    assert torch.equal(fp8_quant.quant_det(x, a, fmt), ref.quant_det(x, a, fmt))
+    gx, ga = fp8_quant.quant_det_bwd(x, a, g, fmt)
+    rgx, rga = ref.quant_det_bwd(x, a, g, fmt)
+    assert torch.equal(gx, rgx)
+    np.testing.assert_allclose(float(ga), float(rga), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_det_bwd_is_one_kernel_a_call(dev, dtype):
+    from torch.profiler import ProfilerActivity, profile
+    x = _randn((8, 128, 2048), 7, 1.5, dev).to(dtype)
+    g = _randn((8, 128, 2048), 8, 1.0, dev).to(dtype)
+    a = torch.tensor(4.0, device=dev)
+    fp8_quant.quant_det_bwd(x, a, g)    # the workspace is allocated before the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fp8_quant.quant_det_bwd(x, a, g)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and "memset" not in e.key.lower() and "memcpy" not in e.key.lower()]
+    assert all("quant_det_bwd_kernel" in e.key for e in kernels), [e.key for e in kernels]
+    assert sum(e.count for e in kernels) == 3
 
 
 @pytest.mark.parametrize("shape", [(135, 1024), (8191, 1024)])
@@ -608,7 +670,9 @@ def test_lm_step_on_the_card_runs_only_the_kernels(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 64), (8, 128, 2048), (1024, 5632), (7, 33)])
+@pytest.mark.parametrize("shape", [(2, 16, 64), (8, 128, 2048), (1024, 5632), (7, 33),
+                                   (8, 128, 5632), (8, 16, 2048), (1,), (7,), (8,), (9,),
+                                   (4097,), (2 ** 21 + 3,)])
 def test_bf16_quant_det_pair_bitwise_against_twins(dev, shape):
     x = _randn(shape, 21, 1.5, dev).to(torch.bfloat16)
     g = (_randn(shape, 22, 1.0, dev).abs() * torch.sign(x.float())).to(torch.bfloat16)
@@ -620,6 +684,8 @@ def test_bf16_quant_det_pair_bitwise_against_twins(dev, shape):
         assert gx.dtype == torch.bfloat16 and ga.dtype == torch.float32
         assert torch.equal(gx, rgx)
         np.testing.assert_allclose(float(ga), float(rga), rtol=1e-5)
+        gx2, ga2 = fp8_quant.quant_det_bwd(x, a, g)
+        assert torch.equal(gx2, gx) and torch.equal(ga2, ga)
 
 
 def _plane(seg_rows, seed, dev):
