@@ -26,7 +26,9 @@ Phases, each fatal on failure (the script then exits non-zero):
    (8191, 1024), and on each model's real plane (its init weights with
    their own alpha column), ``fake_quant_tiles`` also against the wire's
    encode -> decode (1 f32 ULP); the ``quant_rand`` pair at every model's
-   weights, every MLP weight shape and (8191, 1024); the FP4 pair
+   weights, every MLP weight shape and (8191, 1024), with u32 bits read
+   from memory and with a counter key (bits drawn in the kernel), and two
+   backward calls bitwise equal; the FP4 pair
    (``quant_pack_sub_tiles``, ``unpack_sub_tiles``) and the amax encodes
    (``quant_pack_amax_tiles``, ``quant_pack_sub_amax_tiles``) at both FP4
    formats (and E4M3/E5M2 for the FP8 amax encode), det and counter-RNG,
@@ -62,8 +64,8 @@ Phases, each fatal on failure (the script then exits non-zero):
    5 GD steps + 20 grid points). ``bytes_per_round`` must be 826860 and the
    loss finite. The uq+ server step alone is timed, and one more round of
    each path is profiled; in every profiled round (here, in phases 5 and 6)
-   each B2 call must be one CUDA kernel, ``sum_partials_kernel`` only B6's
-   second pass.
+   each B2 call and each B6 call either way must be one CUDA kernel, and no
+   ``sum_partials_kernel`` may run.
 5. the method grid: ``repro_torch.bench.table1`` on cifar10-lenet,
    cifar100-mlp and speech-kwt, iid and Dir(0.3), fp32/uq/uq+, at the
    reference driver's CPU-budget scale cut to 10 of its 20 rounds (eval
@@ -71,7 +73,8 @@ Phases, each fatal on failure (the script then exits non-zero):
    ``bytes_per_round`` must be the reference's integer.
    Then the rand-qat / rand-qat-only cells of ``repro_torch.bench.table2``
    on cifar100-mlp at its default scale: the stochastic-QAT path, driven
-   with the counters zeroed, where both ``quant_rand`` kernels must launch.
+   with the counters zeroed, where both ``quant_rand`` kernels must launch
+   (each weight site's bits drawn inside them from its counter key).
 6. the format ablation (run before phase 5): the ``format``, ``scaling``
    and ``pareto`` sections of ``repro_torch.bench.format_ablation`` at the
    reference's own scale (28 cells, 25 rounds, eval every 5), then four
@@ -469,27 +472,34 @@ def kernel_phase(dev) -> dict:
 
     # the quant_rand pair (B6): every task's init weights at their own alpha,
     # random inputs at every MLP weight shape (cifar100-mlp, and the d_in 32
-    # MLP of the card-vs-CPU rounds) and at the large shape
+    # MLP of the card-vs-CPU rounds) and at the large shape; each with u32
+    # bits read from memory and with a counter key (its words and site drawn
+    # from the seed), whose bits the kernels draw themselves
     rand_cases += [("random", randn(s, 0.3), None)
                    for s in ((32, 64), (64, 64), (64, 10), (64, 100), LARGE)]
     for label, x, a in rand_cases:
         shape = tuple(x.shape)
-        bits = rbits(shape)
         gr = randn(shape, 1.0).abs() * torch.sign(x)
         a = x.abs().max() * 0.8 if a is None else a
-        bad, err = mismatches(K.quant_rand(x, a, bits), R.quant_rand(x, a, bits))
-        worst["quant_rand"] = max(worst["quant_rand"], err)
-        check(bad == 0, f"quant_rand {label} {shape}: {bad} differ")
-        gx, ga = K.quant_rand_bwd(x, a, bits, gr)
-        rgx, rga = R.quant_rand_bwd(x, a, bits, gr)
-        bad, err = mismatches(gx, rgx)
-        rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
-        worst["quant_rand_bwd"] = max(worst["quant_rand_bwd"], err,
-                                      abs(float(ga) - float(rga)))
-        check(bad == 0, f"quant_rand_bwd gx {label} {shape}: {bad} differ")
-        check(rel <= GA_RTOL, f"quant_rand_bwd g_alpha {label} {shape}: rel err {rel:.3g}")
-        print(f"[kernels] quant_rand/bwd {label} {shape}: g_alpha kernel {float(ga):.9g} "
-              f"twin {float(rga):.9g} rel {rel:.3g}")
+        site = int(torch.randint(1, 1 << 20, (), generator=g))
+        for route, bits in (("bits", rbits(shape)), ("counter", R.CounterKey(rbits((2,)), site))):
+            bad, err = mismatches(K.quant_rand(x, a, bits), R.quant_rand(x, a, bits))
+            worst["quant_rand"] = max(worst["quant_rand"], err)
+            check(bad == 0, f"quant_rand {route} {label} {shape}: {bad} differ")
+            gx, ga = K.quant_rand_bwd(x, a, bits, gr)
+            rgx, rga = R.quant_rand_bwd(x, a, bits, gr)
+            bad, err = mismatches(gx, rgx)
+            rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
+            worst["quant_rand_bwd"] = max(worst["quant_rand_bwd"], err,
+                                          abs(float(ga) - float(rga)))
+            check(bad == 0, f"quant_rand_bwd {route} gx {label} {shape}: {bad} differ")
+            check(rel <= GA_RTOL,
+                  f"quant_rand_bwd {route} g_alpha {label} {shape}: rel err {rel:.3g}")
+            gx2, ga2 = K.quant_rand_bwd(x, a, bits, gr)
+            check(torch.equal(gx2, gx) and torch.equal(ga2, ga),
+                  f"quant_rand_bwd {route} {label} {shape}: two calls differ")
+            print(f"[kernels] quant_rand/bwd {route} {label} {shape}: g_alpha kernel "
+                  f"{float(ga):.9g} twin {float(rga):.9g} rel {rel:.3g}")
 
     # the FP4 pair and the amax encodes (B8, B9): random tiles at the format
     # ablation MLP's plane (9, 1024), LeNet's (135, 1024) and the large shape,
@@ -562,6 +572,7 @@ def kernel_phase(dev) -> dict:
         col = xt.abs().amax(dim=1, keepdim=True) * 0.9
         codes = K.quant_pack_tiles(xt, col, key)
         xw, gw, bw = randn(wshape, 0.3), randn(wshape, 1.0), rbits(wshape)
+        kw = R.CounterKey(rbits((2,)), 3)      # the main path's route: counter bits
         aw = xw.abs().max() * 0.8
         n, nt, rows, nw = x.numel(), xt.numel(), tile[0], xw.numel()
         codes4 = K.quant_pack_sub_tiles(xt, col, key)
@@ -580,12 +591,18 @@ def kernel_phase(dev) -> dict:
             "fake_quant_tiles": (lambda: K.fake_quant_tiles(xt, col, key),
                                  lambda: R.fake_quant_tiles(xt, col, key),
                                  8 * nt + 4 * rows + 8, 40 * nt, tile),
-            "quant_rand": (lambda: K.quant_rand(xw, aw, bw),
-                           lambda: R.quant_rand(xw, aw, bw),
-                           12 * nw + 4, 14 * nw, wshape),
-            "quant_rand_bwd": (lambda: K.quant_rand_bwd(xw, aw, bw, gw),
-                               lambda: R.quant_rand_bwd(xw, aw, bw, gw),
-                               16 * nw + 8, 22 * nw, wshape),
+            "quant_rand": (lambda: K.quant_rand(xw, aw, kw),
+                           lambda: R.quant_rand(xw, aw, kw),
+                           8 * nw + 12, 34 * nw, wshape),
+            "quant_rand_bwd": (lambda: K.quant_rand_bwd(xw, aw, kw, gw),
+                               lambda: R.quant_rand_bwd(xw, aw, kw, gw),
+                               12 * nw + 16, 42 * nw, wshape),
+            "quant_rand bits": (lambda: K.quant_rand(xw, aw, bw),
+                                lambda: R.quant_rand(xw, aw, bw),
+                                12 * nw + 4, 14 * nw, wshape),
+            "quant_rand_bwd bits": (lambda: K.quant_rand_bwd(xw, aw, bw, gw),
+                                    lambda: R.quant_rand_bwd(xw, aw, bw, gw),
+                                    16 * nw + 8, 22 * nw, wshape),
             **format_timing_cases(K, R, xt, col, key, codes4),
         }
         for name, (kern, twin, n_bytes, n_ops, shp) in cases.items():
@@ -1013,6 +1030,30 @@ def time_server_step(sim) -> None:
           f"{statistics.median(samples[1:]) * 1e3:.2f} ms (host clock, median of 5)")
 
 
+# torch.profiler on the card loses device records at the start of a trace in
+# two ways (kineto counts both "out of range"): in some traces, those of the
+# first millisecond or so, whose times it places before the window; and in
+# every trace, its earliest records, more the more traces a process has
+# taken, however late they come. So a profiled round whose kernels are
+# counted starts 50 ms into the trace, after LEAD_IN spin kernels,
+# synchronized: the losses fall on them, and the round's records are whole as
+# long as some of them are still recorded.
+LEAD_IN = 256
+
+
+def _lead_in() -> None:
+    synchronize()
+    time.sleep(0.05)
+    for _ in range(LEAD_IN):
+        torch.cuda._sleep(100)
+    synchronize()
+
+
+def _lead_in_seen(rows) -> int:
+    """Spin kernels of ``_lead_in`` among a profile's device rows."""
+    return sum(e.count for e in rows if "spin_kernel" in e.key)
+
+
 def _kernel_counts(rows) -> dict:
     """Launches of each CUDA kernel in a profile's device rows, by its name
     without template arguments."""
@@ -1028,24 +1069,31 @@ def profile_round(sim, s_round: float, label: str) -> dict:
     device's busy time and the kernels that take it, by self device time.
     The profiler slows the host many times over, so the busy share is given
     against the unprofiled round time ``s_round`` as well as against the
-    profiled wall. Checked: each B2 call launched one kernel
-    (``quant_det_bwd_kernel``), and ``sum_partials_kernel`` ran only for B6's
-    backward. Returns the device us per launch of each of the port's
-    kernels that ran."""
+    profiled wall. Checked: each B2 call and each B6 call either way
+    launched one kernel (``quant_det_bwd_kernel``, ``quant_rand_kernel``,
+    ``quant_rand_bwd_kernel``), and nothing named ``sum_partials_kernel``
+    ran. The round follows ``_lead_in``'s spin kernels, which are left out
+    of what is reported. Returns the device us per launch of each of the
+    port's kernels that ran."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import fp8_quant as K
 
     K.reset_launches()
     synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _lead_in()
+        t0 = time.perf_counter()
         sim.run(1, seed=1)
         synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     launches = dict(K.LAUNCHES)
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    seen = _lead_in_seen(rows)
+    check(seen > 0, f"{label}: the profiler lost all {LEAD_IN} lead-in kernels, so it may "
+          "have lost the round's first kernels too")
+    rows = [e for e in rows if "spin_kernel" not in e.key]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
     busy = sum(dev_time(e) for e in rows)
     print(f"[profile] {label}: one round: device busy {busy / 1e3:.1f} ms = "
@@ -1054,21 +1102,24 @@ def profile_round(sim, s_round: float, label: str) -> dict:
           f"{wall_us / 1e3:.1f} ms), {len(rows)} kernel names")
     for e in sorted(rows, key=dev_time, reverse=True)[:12]:
         print(f"[profile]   {dev_time(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-    # B2 is one kernel a call; B6's backward keeps its second pass
+    # B2 and B6 are one kernel a call each way; the first port's second pass
+    # (sum_partials_kernel) is gone
     counts = _kernel_counts(rows)
-    check(counts.get("quant_det_bwd_kernel", 0) == launches["quant_det_bwd"]
-          and counts.get("sum_partials_kernel", 0) == launches["quant_rand_bwd"],
-          f"{label}: {launches['quant_det_bwd']} B2 and {launches['quant_rand_bwd']} B6 "
-          f"backward calls launched {counts.get('quant_det_bwd_kernel', 0)} "
-          f"quant_det_bwd_kernel and {counts.get('sum_partials_kernel', 0)} "
-          "sum_partials_kernel")
-    print(f"[profile] {label}: {launches['quant_det_bwd']} B2 calls, one kernel each "
-          f"(no sum_partials_kernel but B6's {launches['quant_rand_bwd']})")
-    ours = ("quant_det_kernel", "quant_det_bwd_kernel", "sum_partials_kernel",
-            "quant_pack_kernel", "unpack_kernel", "fake_quant_kernel",
-            "quant_rand_kernel", "quant_rand_bwd_kernel", "quant_pack_sub_kernel",
-            "unpack_sub_kernel", "quant_pack_amax_kernel", "rans_encode_kernel",
-            "rans_decode_kernel")
+    one_each = {"quant_det_bwd_kernel": launches["quant_det_bwd"],
+                "quant_rand_kernel": launches["quant_rand"],
+                "quant_rand_bwd_kernel": launches["quant_rand_bwd"]}
+    check(all(counts.get(k, 0) == v for k, v in one_each.items())
+          and "sum_partials_kernel" not in counts,
+          f"{label}: calls {one_each} launched "
+          f"{ {k: counts.get(k, 0) for k in one_each} } kernels and "
+          f"{counts.get('sum_partials_kernel', 0)} sum_partials_kernel")
+    print(f"[profile] {label}: {launches['quant_det_bwd']} B2 and {launches['quant_rand']} / "
+          f"{launches['quant_rand_bwd']} B6 calls, one kernel each; no sum_partials_kernel "
+          f"({seen} of the {LEAD_IN} lead-in kernels recorded)")
+    ours = ("quant_det_kernel", "quant_det_bwd_kernel", "quant_pack_kernel", "unpack_kernel",
+            "fake_quant_kernel", "quant_rand_kernel", "quant_rand_bwd_kernel",
+            "quant_pack_sub_kernel", "unpack_sub_kernel", "quant_pack_amax_kernel",
+            "rans_encode_kernel", "rans_decode_kernel")
     per_launch = {}
     for e in rows:
         name = e.key.removeprefix("void ").split("(")[0]  # a template: "void f<1>(...)"
@@ -1323,8 +1374,11 @@ def grid_phase(dev) -> dict:
     t0 = time.perf_counter()
     sim.run(1, seed=2)
     synchronize()
-    profile_round(sim, time.perf_counter() - t0, "table2 rand-qat")
-    return {"launches": launches, "table1_launches": table1_launches}
+    per_launch = profile_round(sim, time.perf_counter() - t0, "table2 rand-qat")
+    return {"launches": launches, "table1_launches": table1_launches,
+            "device_us": {name: next((v for k, v in per_launch.items()
+                                      if k.split("<")[0] == name + "_kernel"), None)
+                          for name in ("quant_rand", "quant_rand_bwd")}}
 
 
 # ---------------------------------------------------------------------------
@@ -2347,6 +2401,11 @@ def main() -> int:
                      "trainer_device_us": trainer["device_us"].get(name),
                      "launches_by_path": by_path,
                      "launches_all_paths": sum(by_path.values())}
+        if name.startswith("quant_rand"):
+            # the main path's route draws the bits in the kernel; the read
+            # route (the reference's replayed bits) beside it
+            extra = {"bits_route": kern["timings"][name + " bits"],
+                     "device_us": grid["device_us"][name]}
         if name in FORMAT_KERNELS:
             extra = {"mlp": kern["timings"][name]["mlp"], "device_us": fmt["device_us"][
                 PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How B11 ``qat_matmul_dw``'s errors show in the federated LM cell, on the card.
 
-Run from the repository root:  python3 lm_dw_study.py [--spread]
+Run from the repository root:  python3 lm_dw_study.py [--spread [--dw NAME]]
 
 The tensor-core dw is held to a bar against the f64 product (``ref.within_bar``),
 not to its twin's bits, so the cell trains to other losses than with the twin.
@@ -45,6 +45,16 @@ gives with probability 25/729, about 3.4%. Otherwise the tensor-core dw is
 indistinguishable, on the cell's final loss, from a 1e-7 relative
 perturbation of the exact product. About 20 minutes on an H100 (30 runs).
 
+``--spread --dw NAME`` runs the same test with a candidate dw from
+``DW_CANDIDATES`` in the kernel's place, unchanged in every other respect
+(the same seeds, noise seeds, statistic and rule), and runs the kernel, the
+exact product and the noise runs again in the same process: it prints the
+candidate's and the kernel's d, rank and verdict at each seed, |kernel -
+candidate| after round 2, and the outcome of ``candidate_outcome``. With
+``--dw twin`` (the twin's ascending f32 loop, the JAX package's own
+arithmetic) it tells whether the rule flags any inexact f32 dw or the
+tensor-core dw in particular; each twin run takes about 2-3 minutes more.
+
 Exits non-zero without a card, if a dw call of the step misses the bar or
 puts a nonzero where the masked f64 product is zero. About 9 minutes a seed
 on an H100 (the twin's run a quarter of it) and 60 GB of device memory.
@@ -85,6 +95,16 @@ def spread_rule(verdicts) -> bool:
     return sum(bool(v) for v in verdicts) >= SPREAD_FAULT_AT
 
 
+def candidate_outcome(candidate_verdicts) -> str:
+    """What the spread test says of a candidate dw run in the kernel's place:
+    ``"a"`` when the rule flags it as it flagged the kernel (it exceeds every
+    noise run at SPREAD_FAULT_AT or more seeds), so that the rule separates
+    any such dw from the exact product and cannot tell the kernel's dw from
+    the candidate's; ``"b"`` when it does not, so that the candidate passes
+    where the kernel fails and the gap is the kernel's own."""
+    return "a" if spread_rule(candidate_verdicts) else "b"
+
+
 def spread_chance(n_noise: int = len(SPREAD_NOISE_SEEDS), n_seeds: int = 3,
                   at: int = SPREAD_FAULT_AT) -> float:
     """Probability that ``spread_rule`` holds by chance alone, when the
@@ -106,8 +126,13 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
-    if "--spread" in sys.argv[1:]:
-        return spread_study(dev)
+    args = sys.argv[1:]
+    if "--spread" in args:
+        name = args[args.index("--dw") + 1] if "--dw" in args else None
+        if name is not None and name not in DW_CANDIDATES:
+            print(f"lm_dw_study: --dw {name}: one of {sorted(DW_CANDIDATES)}", file=sys.stderr)
+            return 2
+        return spread_study(dev, name)
     verdicts = {}
     ok = True
     for seed in RUN_SEEDS:
@@ -301,25 +326,41 @@ def _cell_losses(dw, seed: int, dev) -> list:
     return [r["local_loss"] for r in out]
 
 
-def spread_study(dev) -> int:
+def _twin_dw(*args, **kw):
+    from repro_torch.kernels import ref as R
+    return R.qat_matmul_dw(*args, **kw)
+
+
+# the dw functions ``--spread --dw NAME`` can run in the kernel's place
+DW_CANDIDATES = {"twin": _twin_dw}
+
+
+def spread_study(dev, candidate: str | None = None) -> int:
     """The pre-registered spread test (module docstring): prints each seed's
     kernel and noise distances, the kernel's rank and verdict, then the
-    rule's verdict. Exits 0 whatever the verdict; non-zero only if a run
-    fails or the kernel's cell is not finite."""
+    rule's verdict; with ``candidate`` (a key of DW_CANDIDATES) the same for
+    that dw, |kernel - candidate| and ``candidate_outcome``. Exits 0
+    whatever the verdict; non-zero only if a run fails or a cell is not
+    finite."""
     import math
     from repro_torch.kernels import fp8_matmul as FM
     kernel = FM.qat_matmul_dw
     r = SPREAD_ROUND - 1
-    verdicts, ok = [], True
+    names = ["kernel"] + ([candidate] if candidate else [])
+    verdicts = {name: [] for name in names}
+    ok = True
     print(f"[spread] rule: at each seed d = |round-{SPREAD_ROUND} loss - the exact run's|; "
-          f"a seed counts when the kernel's d exceeds all {len(SPREAD_NOISE_SEEDS)} noise "
+          f"a seed counts when a dw's d exceeds all {len(SPREAD_NOISE_SEEDS)} noise "
           f"runs' (exact x (1 + {NOISE:g} N), noise seeds {list(SPREAD_NOISE_SEEDS)}); the "
           f"fault stands at {SPREAD_FAULT_AT} or more of {len(RUN_SEEDS)} seeds (chance "
-          f"{spread_chance():.4f})")
+          f"{spread_chance():.4f})" + (f"; candidate: {candidate}" if candidate else ""))
     for seed in RUN_SEEDS:
         losses = {}
-        for label, dw in [("kernel", kernel), ("exact", _exact)] + [
-                (f"noise {s}", _with_noise(_exact, s, dev)) for s in SPREAD_NOISE_SEEDS]:
+        runs = [("kernel", kernel)]
+        runs += [(candidate, DW_CANDIDATES[candidate])] if candidate else []
+        runs += [("exact", _exact)]
+        runs += [(f"noise {s}", _with_noise(_exact, s, dev)) for s in SPREAD_NOISE_SEEDS]
+        for label, dw in runs:
             t0 = time.perf_counter()
             losses[label] = _cell_losses(dw, seed, dev)
             ok = ok and all(math.isfinite(v) for v in losses[label])
@@ -327,16 +368,28 @@ def spread_study(dev) -> int:
                   + " -> ".join(f"{v:.6f}" for v in losses[label])
                   + f" ({time.perf_counter() - t0:.1f} s)")
         ex = losses["exact"][r]
-        kernel_d = abs(losses["kernel"][r] - ex)
         noise_d = [abs(losses[f"noise {s}"][r] - ex) for s in SPREAD_NOISE_SEEDS]
-        verdicts.append(spread_verdict(kernel_d, noise_d))
-        print(f"[spread] seed {seed}: exact {ex:.6f}; kernel d {kernel_d:.6g}; noise d "
-              + ", ".join(f"{d:.6g}" for d in noise_d)
-              + f"; kernel rank {spread_rank(kernel_d, noise_d)} of {len(noise_d) + 1}; "
-              f"{'exceeds all' if verdicts[-1] else 'within the noise runs'}")
-    stands = spread_rule(verdicts)
-    print(f"[spread] the kernel exceeds all noise runs at {sum(verdicts)} of {len(verdicts)} "
-          f"seeds: the fault {'stands' if stands else 'is closed'}")
+        print(f"[spread] seed {seed}: exact {ex:.6f}; noise d "
+              + ", ".join(f"{d:.6g}" for d in noise_d))
+        for name in names:
+            d = abs(losses[name][r] - ex)
+            verdicts[name].append(spread_verdict(d, noise_d))
+            print(f"[spread] seed {seed}: {name} d {d:.6g}; rank {spread_rank(d, noise_d)} "
+                  f"of {len(noise_d) + 1}; "
+                  f"{'exceeds all' if verdicts[name][-1] else 'within the noise runs'}")
+        if candidate:
+            print(f"[spread] seed {seed}: |kernel - {candidate}| after round {SPREAD_ROUND} "
+                  f"{abs(losses['kernel'][r] - losses[candidate][r]):.6g}")
+    for name in names:
+        stands = spread_rule(verdicts[name])
+        print(f"[spread] {name} exceeds all noise runs at {sum(verdicts[name])} of "
+              f"{len(verdicts[name])} seeds: the rule "
+              f"{'flags it' if stands else 'does not flag it'}"
+              + ("" if name != "kernel" else
+                 f" (the fault {'stands' if stands else 'is closed'})"))
+    if candidate:
+        print(f"[spread] outcome ({candidate} in the kernel's place): "
+              f"{candidate_outcome(verdicts[candidate])}")
     print(f"lm_dw_study --spread: {'ok' if ok else 'FAILED'}")
     return 0 if ok else 1
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""What bounds the QAT pair B1 ``quant_det`` / B2 ``quant_det_bwd`` on the card.
+"""What bounds the QAT kernels B1/B2 and the stochastic pair B6 on the card.
 
-Run from the repository root:  python3 qat_probe.py [--src DIR]
+Run from the repository root:  python3 qat_probe.py [--src DIR] [--b6]
 
 At the one-device trainer's bf16 activation shapes (batch 8 x 128 tokens:
 (8, 128, 2048), (8, 128, 5632), and a CE chunk's (8, 16, 2048)), at f32
@@ -30,10 +30,27 @@ kernel:
   (``cuobjdump -sass`` of the built library: a one-element kernel less a
   plain copy; the division's slow path included).
 
-With ``--src DIR`` it times the kernels of the package under ``DIR/src``
-instead (for example an unpacked parent commit), and runs only the probes
-that library has. Needs a card; prints ``{"qat_probe": ...}`` last.
-``chip_smoke.py`` calls :func:`measure` too.
+Then, for B6 (``quant_rand`` / ``quant_rand_bwd``, stochastic QAT's weight
+quantizer; :func:`measure_b6`), at every rand-qat weight shape of
+cifar100-mlp and at (8191, 1024):
+
+- each kernel's device time a call, its CUDA kernels a call and its stream
+  time a call, with the u32 bits read from memory and, where the package
+  has the counter route (``ref.CounterKey``), with the bits drawn inside the
+  kernel; the bytes bound of each route;
+- one weight site as the rand-qat path runs it: the site's bits from
+  ``CounterQatBits.provider`` and ``dispatch.quantize_rand``'s forward, then
+  its backward, at (64, 100): CUDA kernels and device time of each;
+- one profiled round of Table 2's rand-qat cell (cifar100-mlp at
+  ``bench.table2.CPU_BUDGET``): the wall of five rounds, device busy against
+  their median, the round's top kernels, B6's kernels and the site bits (a
+  ``record_function`` range around each provider call) in it.
+
+``--b6`` runs only the B6 part. With ``--src DIR`` it times the kernels of
+the package under ``DIR/src`` instead (for example an unpacked parent
+commit), and runs only the probes and routes that package has. Needs a
+card; prints ``{"qat_probe": ...}`` last. ``chip_smoke.py`` calls
+:func:`measure` too.
 """
 from __future__ import annotations
 
@@ -260,6 +277,208 @@ def measure(dev, K, verbose: bool = True) -> dict:
     return res
 
 
+B6_SHAPES = ((32, 64), (64, 64), (64, 10), (64, 100), (8191, 1024))
+B6_SITE_SHAPE = (64, 100)   # the largest rand-qat weight (cifar100-mlp)
+B6_KERNELS = ("quant_rand_kernel", "quant_rand_bwd_kernel", "sum_partials_kernel")
+ROUND_REPEATS = 5   # timed rounds of the Table 2 cell before the profiled one
+
+
+def b6_bytes_bound_ms(n: int, bwd: bool, counter: bool) -> float:
+    """B6 reads x (and g backward) and the bits unless it draws them, writes
+    out (gx backward); alpha, the key and g_alpha besides."""
+    per = 4 + (0 if counter else 4) + (8 if bwd else 4)
+    return (per * n + 4 + (8 if counter else 0) + (4 if bwd else 0)) / HBM_BYTES_PER_S * 1e3
+
+
+def _cuda_rows(prof):
+    import torch
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+
+def profile_calls(calls, warm=None) -> dict:
+    """Every CUDA kernel the callables in ``calls`` launch, one call each,
+    under torch.profiler (``warm`` called once before): ``{"kernels": per
+    call, "device_us": per call, "names": {kernel: launches}}``. A call
+    that launches nothing gives five empty profiles in a row: 0 kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if warm is not None:
+        warm()
+    torch.cuda.synchronize()
+    for _ in range(5):   # a profile now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        rows = _cuda_rows(prof)
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+        if total > 0:
+            names = {}
+            for e in rows:
+                k = e.key.removeprefix("void ").split("(")[0].split("<")[0]
+                names[k] = names.get(k, 0) + e.count
+            return {"kernels": sum(e.count for e in rows) / len(calls),
+                    "device_us": total / len(calls), "names": names}
+        time.sleep(0.1)
+    return {"kernels": 0, "device_us": 0.0, "names": {}}
+
+
+def measure_b6(dev, verbose: bool = True) -> dict:
+    """B6's kernels, one weight site and one profiled Table 2 rand-qat round
+    with the package on the path (module docstring)."""
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import dispatch as D
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.kernels import ref as R
+
+    counter = hasattr(R, "CounterKey")
+    g = torch.Generator().manual_seed(23)
+    u32 = lambda shape: torch.randint(0, 2 ** 32, shape, generator=g,
+                                      dtype=torch.int64).to(torch.uint32).to(dev)
+    res = {"counter_route": counter, "shapes": {}}
+    for shape in B6_SHAPES:
+        x = (torch.randn(shape, generator=g) * 0.3).to(dev)
+        gr = torch.randn(shape, generator=g).to(dev)
+        a = x.abs().max() * 0.8
+        routes = {"bits": u32(shape)}
+        if counter:
+            routes["counter"] = R.CounterKey(u32((2,)), 7)
+        row = {}
+        for route, bits in routes.items():
+            for name, fn, bwd in (
+                    ("quant_rand", lambda: K.quant_rand(x, a, bits), False),
+                    ("quant_rand_bwd", lambda: K.quant_rand_bwd(x, a, bits, gr), True)):
+                prof = profile_calls([fn] * 50, warm=fn)
+                b_us = b6_bytes_bound_ms(x.numel(), bwd, route == "counter") * 1e3
+                row[f"{name} {route}"] = {
+                    "device_us": prof["device_us"], "kernels": prof["kernels"],
+                    "stream_us": stream_us(fn), "bound_us": b_us}
+        res["shapes"][str(shape)] = row
+        if verbose:
+            for label, r in row.items():
+                print(f"[b6-probe] {label:22s} {str(shape):13s}: device {r['device_us']:.3f} "
+                      f"us a call in {r['kernels']} kernels, stream {r['stream_us']:.3f} us, "
+                      f"bytes bound {r['bound_us']:.4f} us")
+    # one weight site of the rand-qat path: its bits, the forward, the backward
+    keys = u32((1, 1, 2))
+    src = E.CounterQatBits(keys)
+    xw = (torch.randn(B6_SITE_SHAPE, generator=g) * 0.3).to(dev).requires_grad_()
+    aw = (xw.detach().abs().max() * 0.8).requires_grad_()
+    gw = torch.randn(B6_SITE_SHAPE, generator=g).to(dev)
+
+    def site_fwd():
+        return D.quantize_rand(xw, aw, src.provider(0, 0)(3, B6_SITE_SHAPE))
+    fwd = profile_calls([site_fwd] * 50, warm=site_fwd)
+    outs = [site_fwd() for _ in range(51)]
+    bwd = profile_calls([lambda o=o: torch.autograd.grad(o, (xw, aw), gw) for o in outs[:50]],
+                        warm=lambda: torch.autograd.grad(outs[50], (xw, aw), gw))
+    with torch.no_grad():
+        bits_fn = lambda: src.provider(0, 0)(3, B6_SITE_SHAPE)
+        bits_only = profile_calls([bits_fn] * 50, warm=bits_fn)
+    res["site"] = {"shape": list(B6_SITE_SHAPE), "forward": fwd, "backward": bwd,
+                   "bits": bits_only}
+    if verbose:
+        for label, r in (("bits", bits_only), ("forward", fwd), ("backward", bwd)):
+            print(f"[b6-probe] one site {B6_SITE_SHAPE} {label:8s}: {r['kernels']} CUDA "
+                  f"kernels, {r['device_us']:.3f} us of device time a call ({r['names']})")
+    rnd = rand_qat_round(dev, verbose)
+    # the bits' share again from the site probe: its device time x the round's sites
+    rnd["bits_est_ms"] = bits_only["device_us"] * rnd["sites"] / 1e3
+    if verbose:
+        print(f"[b6-probe] table2 rand-qat round: the site probe's bits x {rnd['sites']} "
+              f"sites = {rnd['bits_est_ms']:.3f} ms")
+    res["table2_round"] = rnd
+    return res
+
+
+def rand_qat_round(dev, verbose: bool = True) -> dict:
+    """One profiled round of Table 2's rand-qat cell (cifar100-mlp at
+    ``table2.CPU_BUDGET``), after a warm round and ROUND_REPEATS timed ones:
+    their walls (unprofiled), device busy, the top kernels, B6's kernels and
+    the site bits in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.bench import common, table2
+    from repro_torch.core import engine as E
+    from repro_torch.core.fedsim import FedSim
+    from repro_torch.data import partition_iid
+    from repro_torch.models import small
+
+    sc = table2.CPU_BUDGET
+    task = common.TASKS["cifar100-mlp"]
+    (x, y), _ = common.make_data(task, sc["n_train"], sc["n_test"], seed=0)
+    cx, cy, nk = partition_iid(x, y, k=sc["k"], seed=0)
+    params, apply = common.make_model(task, 0, dev)
+    cfg = common.method_cfg("rand-qat", sc["k"], sc["c"], sc["local_steps"], sc["batch"])
+    sim = FedSim(params, small.make_loss(apply), apply, common.make_optimizer(task, params),
+                 cfg, cx, cy, nk, device=dev)
+    sim.run(1, seed=0)
+    torch.cuda.synchronize()
+    walls = []
+    for r in range(ROUND_REPEATS):
+        t0 = time.perf_counter()
+        sim.run(1, seed=2 + r)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    provider = E.CounterQatBits.provider
+    sites = [0]
+
+    def traced(self, client, step):
+        fn = provider(self, client, step)
+
+        def bits(site, shape):
+            sites[0] += 1
+            with record_function("qat_site_bits"):
+                return fn(site, shape)
+        return bits
+    E.CounterQatBits.provider = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sim.run(1, seed=1)
+            torch.cuda.synchronize()
+    finally:
+        E.CounterQatBits.provider = provider
+    events = prof.key_averages()
+    # kernels only: the device-side rows of the record_function ranges span
+    # the time their kernels waited in the queue as well
+    rows = [e for e in _cuda_rows(prof) if e.key != "qat_site_bits"]
+    self_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    busy = sum(self_us(e) for e in rows)
+    b6 = {}
+    for e in rows:
+        k = e.key.removeprefix("void ").split("(")[0].split("<")[0]
+        if k in B6_KERNELS:
+            b6[k] = {"launches": e.count, "device_ms": self_us(e) / 1e3}
+    # the host-side ranges: the device time of the kernels their ops launched
+    # (the device-side annotation of the same name spans queue time too)
+    bits_us = sum(getattr(e, "device_time_total", 0.0) for e in events
+                  if e.key == "qat_site_bits"
+                  and getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU)
+    top = sorted(rows, key=self_us, reverse=True)[:8]
+    out = {"wall_ms": wall_ms, "walls_ms": walls, "busy_ms": busy / 1e3,
+           "busy_share": busy / 1e3 / wall_ms,
+           "top": [(e.key[:60], e.count, self_us(e) / 1e3) for e in top],
+           "b6": b6, "b6_ms": sum(v["device_ms"] for v in b6.values()),
+           "sites": sites[0], "bits_ms": bits_us / 1e3,
+           "kernels": sum(e.count for e in rows)}
+    if verbose:
+        print(f"[b6-probe] table2 rand-qat round: wall a round "
+              + ", ".join(f"{w:.1f}" for w in walls) + " ms (unprofiled); top kernels "
+              + "; ".join(f"{k} x{c} {ms:.3f} ms" for k, c, ms in out["top"]))
+        print(f"[b6-probe] table2 rand-qat round: wall {wall_ms:.1f} ms (median), device "
+              f"busy {out['busy_ms']:.3f} ms ({100 * out['busy_share']:.1f}%), "
+              f"{out['kernels']} CUDA kernels; B6 {out['b6_ms']:.3f} ms "
+              f"({100 * out['b6_ms'] / max(out['busy_ms'], 1e-9):.1f}% of busy) {b6}; "
+              f"{sites[0]} site bits calls, {out['bits_ms']:.3f} ms of device time under them "
+              f"({100 * out['bits_ms'] / max(out['busy_ms'], 1e-9):.1f}% of busy)")
+    return out
+
+
 def log2f_monotone(dev, K) -> dict:
     """The scale table's premise on this card: log2f non-decreasing over
     every f32 pattern from +0 to FLT_MAX (``repro_log2f_monotone``, one
@@ -300,7 +519,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     print(f"[qat-probe] kernels of {root}")
     K.build()
-    res = measure(torch.device("cuda"), K)
+    dev = torch.device("cuda")
+    res = {} if "--b6" in sys.argv[1:] else measure(dev, K)
+    res["b6"] = measure_b6(dev)
     print(json.dumps({"qat_probe": res}))
     return 0
 

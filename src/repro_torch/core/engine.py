@@ -50,7 +50,6 @@ from . import scaling as scaling_lib
 from .codec import DeltaCodec, Fp8Codec, WireCodec
 from .entropy import RansCodec
 from .fp8 import E4M3, FP8Format
-from .plane import nelem
 from .qat import BitsFn, QATConfig
 from .server_opt import ServerOptConfig, server_optimize, weighted_mean
 from .. import tree
@@ -173,28 +172,18 @@ class CounterQatBits:
     """The port's own site bits: the counter RNG (``kernels.ref``) over the
     element index of the weight, keyed by one ``(2,)`` u32 word pair per
     client and local step, with the site number mixed into the first word.
-    Made on the tensor's device; no generator state."""
+    A site gets its key (``ref.CounterKey``), not its bits: the B6 kernels
+    draw them on the card, the twins make them on the CPU. No generator
+    state."""
 
     keys: torch.Tensor   # (P, U, 2) uint32
 
     def provider(self, client: int, step: int) -> BitsFn:
-        k = self.keys[client, step].to(torch.int64)
-
-        def bits(site: int, shape: tuple) -> torch.Tensor:
-            idx = torch.arange(nelem(tuple(shape)), dtype=torch.int64, device=k.device)
-            k0 = k[0] ^ ((site * 0x9E3779B9) & 0xFFFFFFFF)
-            return _as_u32(ref.counter_bits(idx, k0, k[1])).reshape(shape)
-
-        return bits
+        key2 = self.keys[client, step]
+        return lambda site, shape: ref.CounterKey(key2, site)
 
     def to(self, device) -> "CounterQatBits":
         return CounterQatBits(self.keys.to(device))
-
-
-def _as_u32(t: torch.Tensor) -> torch.Tensor:
-    """int64 holding values in [0, 2^32) -> the same bits as uint32 (through
-    int32 and a same-width view, which every device supports)."""
-    return t.to(torch.int32).view(torch.uint32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,15 +15,16 @@ in the reference).
 Stochastic QAT needs random bits at every weight site. The reference draws
 them inside the model from ``jax.random.bits(fold_in(key, site))``
 (``models/small.py:42-49``); here the model is handed a :data:`BitsFn`,
-``bits(site, shape) -> u32 tensor``, with sites numbered 1, 2, ... in the
-order the forward pass reaches them, as the reference's site counter does.
-The engine's default draws them from the counter RNG; parity tests replay
-the reference's bits through the same hook.
+``bits(site, shape)``, with sites numbered 1, 2, ... in the order the
+forward pass reaches them, as the reference's site counter does. It returns
+the site's u32 bits of ``shape``, or a ``kernels.ref.CounterKey`` from which
+the kernels draw them. The engine's default hands out counter keys; parity
+tests replay the reference's bits through the same hook.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -35,7 +36,7 @@ QA_SUFFIX = "_qa"
 QB_SUFFIX = "_qb"
 MODES = ("det", "rand")
 
-BitsFn = Callable[[int, tuple], torch.Tensor]  # (site, shape) -> u32 bits
+BitsFn = Callable[[int, tuple], Any]  # (site, shape) -> u32 bits or a ref.CounterKey
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +97,10 @@ def _lsq_grad_scale(alpha: torch.Tensor, n_elements: int,
 
 
 def wq(w: torch.Tensor, alpha: torch.Tensor, cfg: QATConfig,
-       bits: torch.Tensor | None = None) -> torch.Tensor:
+       bits=None) -> torch.Tensor:
     """Fake-quantize a weight tensor for the forward pass (QAT); ``bits``
-    (u32 of w's shape) are the site's random bits in ``mode='rand'``."""
+    (u32 of w's shape, or a ``ref.CounterKey``) are the site's random bits
+    in ``mode='rand'``."""
     if not (cfg.enabled and cfg.quantize_weights):
         return w
     from ..kernels import dispatch

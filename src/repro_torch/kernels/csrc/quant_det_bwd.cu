@@ -32,7 +32,7 @@
 // is not the first port's to the last bit (another grid, other partial
 // sums, the product by 1 / a), and stays within GA_RTOL of the twin's. The
 // workspace (a ticket word, then the partials) is shared by the calls on
-// one stream: two calls that overlap in time, on two streams or replayed
+// one stream, B6's backward (quant_rand.cu) included: two calls that overlap in time, on two streams or replayed
 // together from a graph, must not share it. What is left at the trainer's
 // shapes: the fold's tail (a fence-ordered ticket, then one block reading
 // every partial: about 1.5 us, the copy probe's excess over B1's), the
@@ -47,8 +47,6 @@ static constexpr int kBatchesPerThread = 4;   // a thread's units of work, each 
 // Vectors of each operand in a thread's unit of work: 8 elements
 template <typename T>
 static constexpr int kUnroll = 8 / fp8::Vec<T>::kN;
-constexpr int kWorkspacePartials = 8192;   // >= any grid below (fp8::kMaxBlocks)
-constexpr int kWorkspaceFloats = 32 + kWorkspacePartials;   // the ticket (a 128-byte line), partials
 // Up to this many elements a thread, on the one-element path, where that
 // keeps the grid within one block an SM: the fold's tail grows with the
 // blocks, and a unit of 8 elements one after another would lengthen each
@@ -164,7 +162,8 @@ __global__ void __launch_bounds__(fp8::kThreads) quant_det_bwd_kernel(
       });
     }
   }
-  fp8::fold_by_last_block(acc, ws + 32, reinterpret_cast<unsigned int*>(ws), galpha, sh);
+  fp8::fold_by_last_block(acc, ws + fp8::kFoldTicketFloats,
+                          reinterpret_cast<unsigned int*>(ws), galpha, sh);
 }
 
 template <typename T, int KIND>
@@ -190,22 +189,17 @@ static int launch(const void* x, const float* alpha, const void* g, void* gx, fl
       blocks = fp8::stream_blocks(units, kBatchesPerThread, res);
     }
   }
-  if (blocks > kWorkspacePartials) return (int)cudaErrorInvalidConfiguration;
+  if (blocks > fp8::kFoldPartials) return (int)cudaErrorInvalidConfiguration;
   kernel<<<blocks, fp8::kThreads, 0, stream>>>(
       static_cast<const T*>(x), alpha, static_cast<const T*>(g), static_cast<T*>(gx), ws,
       galpha, n, s.head, s.nvec, n >= kTabMinN ? 1 : 0, f);
   return (int)cudaGetLastError();
 }
 
-// The grid of pass 1 of B6 quant_rand_bwd (quant_rand.cu), which keeps the
-// two-pass reduction; its wrapper sizes the partials with it.
-extern "C" int repro_quant_det_bwd_blocks(long long n) {
-  return fp8::bwd_blocks(n);
-}
-
-// Floats of B2's workspace: the ticket (zeroed once, by the caller, when it
-// allocates the workspace; every launch leaves it 0), then the partials.
-extern "C" int repro_quant_det_bwd_workspace() { return kWorkspaceFloats; }
+// Floats of the workspace B2 and B6 share: the ticket (zeroed once, by the
+// caller, when it allocates the workspace; every launch leaves it 0), then
+// the partials.
+extern "C" int repro_quant_det_bwd_workspace() { return fp8::kFoldWorkspaceFloats; }
 
 // bf16 != 0: x, g and gx are __nv_bfloat16, else float. One launch.
 extern "C" int repro_quant_det_bwd(const void* x, const float* alpha,

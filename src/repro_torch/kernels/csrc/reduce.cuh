@@ -1,21 +1,31 @@
 // Deterministic sum of a per-element term to one scalar, shared by the STE
-// backward kernels (quant_det_bwd.cu in one launch, quant_rand.cu in two),
-// and the block max of the amax encodes (quant_pack_amax.cu).
+// backward kernels (quant_det_bwd.cu and quant_rand.cu, each in one launch;
+// the QAT products' clip cotangents in a second, qat_matmul.cu), and the
+// block max of the amax encodes (quant_pack_amax.cu).
 //
 // The TPU kernels accumulated the scalar clip cotangent in a (1, 1) block
 // across their sequential grid. Blocks here run in no order, so pass 1
 // writes one partial sum per block (a fixed-order tree) and pass 2 reduces
-// the partials in one block: a second launch (B6), or the last block of the
-// same launch (B2, fold_by_last_block). The grid size depends only on n and
-// the card, so the result is the same on every run; no sum takes an atomic.
+// the partials in one block: the last block of the same launch (B2 and B6,
+// fold_by_last_block), or a second launch (fold_partials). The grid size
+// depends only on n and the card, so the result is the same on every run;
+// no sum takes an atomic.
 #pragma once
 
 #include "fp8_common.cuh"
 
 namespace fp8 {
 
-// Blocks of pass 1 for n elements; the wrapper sizes the partials with it
-// (through repro_quant_det_bwd_blocks) so both sides agree on the grid.
+// The workspace of fold_by_last_block that B2 and B6 share (allocated and
+// zeroed once a device by the wrapper): the ticket word, alone on a
+// 128-byte line, then room for the partials of any grid of kFoldPartials
+// blocks or fewer.
+constexpr int kFoldTicketFloats = 32;
+constexpr int kFoldPartials = 8192;   // >= any grid of those kernels (fp8::kMaxBlocks)
+constexpr int kFoldWorkspaceFloats = kFoldTicketFloats + kFoldPartials;
+
+// Blocks of pass 1 for n elements on the first port's pattern (one element a
+// thread, at most 1024 blocks): the dx finish and B2's copy probe.
 inline int bwd_blocks(long long n) {
   return grid_for(n) < 1024 ? grid_for(n) : 1024;
 }
@@ -108,12 +118,3 @@ __device__ __forceinline__ void fold_by_last_block(float v, float* __restrict__ 
 }
 
 }  // namespace fp8
-
-// Pass 2 as a kernel. Static, so each translation unit that includes this
-// header has its own.
-static __global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                           int n_parts,
-                                           float* __restrict__ out) {
-  __shared__ float sh[fp8::kThreads];
-  fp8::fold_partials(partial, n_parts, out, sh);
-}

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fp8_matmul, fp8_quant
+from . import fp8_matmul, fp8_quant, ref
 from . import rans as rans_kernel
 from ..core import fp8
 from ..core.fp8 import E4M3, FP4_E2M1, FP8Format
@@ -73,40 +73,51 @@ def quantize_det(x: torch.Tensor, alpha: torch.Tensor,
 
 
 class _QuantRandSTE(torch.autograd.Function):
-    """Q_rand with a per-tensor scalar alpha over explicit u32 bits: kernel
-    forward, kernel backward (the same bits)."""
+    """Q_rand with a per-tensor scalar alpha: kernel forward, kernel backward
+    with the same bits. u32 bits are saved for the backward; a
+    ``ref.CounterKey`` is kept instead (no bits tensor: the kernels draw
+    them from the key on the card, the twins materialize them on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, alpha, bits, fmt):
         ctx.fmt = fmt
-        ctx.save_for_backward(x, alpha, bits)
+        if isinstance(bits, ref.CounterKey):
+            ctx.key = bits
+            ctx.save_for_backward(x, alpha)
+        else:
+            ctx.key = None
+            ctx.save_for_backward(x, alpha, bits)
         return fp8_quant.quant_rand(x, alpha, bits, fmt)
 
     @staticmethod
     def backward(ctx, g):
-        x, alpha, bits = ctx.saved_tensors
+        x, alpha, *bits = ctx.saved_tensors
+        bits = ctx.key if ctx.key is not None else bits[0]
         gx, ga = fp8_quant.quant_rand_bwd(x, alpha, bits, g.contiguous(), ctx.fmt)
         return gx, ga.reshape(alpha.shape), None, None
 
 
-def quantize_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+def quantize_rand(x: torch.Tensor, alpha: torch.Tensor, bits,
                   fmt: FP8Format = E4M3) -> torch.Tensor:
     """Stochastic (unbiased) FP8 fake-quant through the kernel pair.
 
     ``bits`` are u32 of x's shape, drawn by the caller (the reference draws
-    them with ``jax.random.bits`` outside its kernel). As for
-    :func:`quantize_det`, stacked clipping values and a 0-dim ``x`` take the
-    plain chain on the CPU and raise on the card.
+    them with ``jax.random.bits`` outside its kernel), or a
+    ``ref.CounterKey``: the site's counter bits, which the kernels draw
+    themselves on the card and the twins materialize on the CPU, bitwise
+    the same. As for :func:`quantize_det`, stacked clipping values and a
+    0-dim ``x`` take the plain chain on the CPU and raise on the card.
     """
     if x.dim() >= 1 and alpha.numel() == 1:
-        return _QuantRandSTE.apply(x.contiguous(), alpha.to(torch.float32),
-                                   bits.contiguous(), fmt)
+        if not isinstance(bits, ref.CounterKey):
+            bits = bits.contiguous()
+        return _QuantRandSTE.apply(x.contiguous(), alpha.to(torch.float32), bits, fmt)
     if x.device.type != "cpu" or alpha.device.type != "cpu":
         raise NotImplementedError(
             f"quantize_rand on {x.device.type}: the kernel takes x of rank >= 1 "
             f"and a one-element alpha, got x {tuple(x.shape)}, alpha "
             f"{tuple(alpha.shape)} (the stacked-alpha kernel is not ported yet)")
-    return fp8.quantize_rand(x, alpha, bits, fmt)
+    return fp8.quantize_rand(x, alpha, ref.site_bits(bits, x.shape), fmt)
 
 
 class _QatMatmulSTE(torch.autograd.Function):

@@ -28,12 +28,12 @@ plain C interface into ``build/repro_torch_kernels/`` at the repository root
 and ``ctypes`` loads it. Nothing is built or imported at module import.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty`` (``quant_det_bwd`` also reuses one zeroed
-workspace a device, ``_bwd_workspace``), launches on the current stream, raises if the C
-function returns a non-zero ``cudaGetLastError()``, and adds one to
-``LAUNCHES[name]``. A tensor on the CPU takes the kernel's plain twin in
-``kernels.ref`` instead (that is how the CPU tests run); any other device
-raises.
+outputs with ``torch.empty`` (``quant_det_bwd`` and ``quant_rand_bwd`` also
+reuse one zeroed workspace a device, ``_bwd_workspace``), launches on the
+current stream, raises if the C function returns a non-zero
+``cudaGetLastError()``, and adds one to ``LAUNCHES[name]``. A tensor on
+the CPU takes the kernel's plain twin in ``kernels.ref`` instead (that is
+how the CPU tests run); any other device raises.
 """
 from __future__ import annotations
 
@@ -145,7 +145,6 @@ def load() -> ctypes.CDLL:
                             ctypes.c_float)
         fmt_args = [i32, i32, f32]
         lib.repro_quant_det.argtypes = [p, p, p, i64, i32, *fmt_args, p]
-        lib.repro_quant_det_bwd_blocks.argtypes = [i64]
         lib.repro_quant_det_bwd_workspace.argtypes = []
         lib.repro_quant_det_bwd.argtypes = [p, p, p, p, p, p, i64, i32, *fmt_args, p]
         lib.repro_quant_pack_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
@@ -154,8 +153,9 @@ def load() -> ctypes.CDLL:
         lib.repro_fake_quant_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_det_tiles.argtypes = [p, p, p, i64, *fmt_args, p]
         lib.repro_quant_det_tiles_bwd.argtypes = [p, p, p, p, p, i64, *fmt_args, p]
-        lib.repro_quant_rand.argtypes = [p, p, p, p, i64, *fmt_args, p]
-        lib.repro_quant_rand_bwd.argtypes = [p, p, p, p, p, p, p, i64, *fmt_args, p]
+        u32 = ctypes.c_uint32
+        lib.repro_quant_rand.argtypes = [p, p, p, p, u32, p, i64, *fmt_args, p]
+        lib.repro_quant_rand_bwd.argtypes = [p, p, p, p, u32, p, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_pack_sub_tiles.argtypes = [p, p, i32, p, p, i64, i32, *fmt_args, p]
         lib.repro_unpack_sub_tiles.argtypes = [p, p, i32, p, i64, i32, *fmt_args, p]
         lib.repro_quant_pack_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, i32,
@@ -169,8 +169,8 @@ def load() -> ctypes.CDLL:
         lib.repro_qat_matmul_dx.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i32,
                                             *fmt_args, p]
         lib.repro_qat_matmul_dw.argtypes = lib.repro_qat_matmul_dx.argtypes
-        for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_blocks,
-                   lib.repro_quant_det_bwd_workspace, lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
+        for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_workspace,
+                   lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
                    lib.repro_unpack_tiles, lib.repro_fake_quant_tiles,
                    lib.repro_quant_rand, lib.repro_quant_rand_bwd,
                    lib.repro_quant_pack_sub_tiles, lib.repro_unpack_sub_tiles,
@@ -304,11 +304,11 @@ _WORKSPACES: dict = {}
 
 
 def _bwd_workspace(device: torch.device) -> torch.Tensor:
-    """B2's workspace on ``device``, allocated and zeroed at its first call:
-    a ticket word that every launch leaves at 0, then the block partials
-    (``csrc/quant_det_bwd.cu``). Calls on one stream share it; it assumes
-    no two B2 launches on one device overlap in time (one stream, no graph
-    replays running concurrently)."""
+    """The workspace of B2 and B6's backward on ``device``, allocated and
+    zeroed at its first call: a ticket word that every launch leaves at 0,
+    then the block partials (``csrc/reduce.cuh``). Calls on one stream share
+    it; it assumes no two such launches on one device overlap in time (one
+    stream, no graph replays running concurrently)."""
     ws = _WORKSPACES.get(device)
     if ws is None:
         ws = torch.zeros(load().repro_quant_det_bwd_workspace(), dtype=torch.float32,
@@ -371,42 +371,54 @@ def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
     return out
 
 
-def quant_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+def _rand_bits(x: torch.Tensor, bits) -> tuple:
+    """B6's bits arguments ``(bits pointer, key pointer, mix)``: u32 ``bits``
+    of x's shape read by the kernel, or a ``ref.CounterKey`` whose bits the
+    kernel draws from its two key words on the device and the site's word."""
+    if isinstance(bits, ref.CounterKey):
+        _check(bits.key2, "key2", torch.uint32, (2,))
+        return None, bits.key2.data_ptr(), bits.mix
+    _check(bits, "bits", torch.uint32, tuple(x.shape))
+    return bits.data_ptr(), None, 0
+
+
+def _bits_tensor(bits) -> torch.Tensor:
+    return bits.key2 if isinstance(bits, ref.CounterKey) else bits
+
+
+def quant_rand(x: torch.Tensor, alpha: torch.Tensor, bits,
                fmt: FP8Format = E4M3) -> torch.Tensor:
-    """Q_rand fake-quant of any-shape f32 ``x`` with a one-element ``alpha``
-    and u32 random ``bits`` of x's shape."""
-    if _on_cpu(x, alpha, bits):
+    """Q_rand fake-quant of any-shape f32 ``x`` with a one-element ``alpha``;
+    ``bits`` are u32 random bits of x's shape, or a ``ref.CounterKey`` (the
+    kernel draws the site's counter bits itself)."""
+    if _on_cpu(x, alpha, _bits_tensor(bits)):
         return ref.quant_rand(x, alpha, bits, fmt)
     _check(x, "x", torch.float32)
-    _check(bits, "bits", torch.uint32, tuple(x.shape))
     _check_scalar_alpha(alpha)
+    bits_p, key_p, mix = _rand_bits(x, bits)
     out = torch.empty_like(x)
-    rc = load().repro_quant_rand(x.data_ptr(), alpha.data_ptr(), bits.data_ptr(),
-                                 out.data_ptr(), x.numel(), *_fmt_args(fmt),
-                                 _stream())
+    rc = load().repro_quant_rand(x.data_ptr(), alpha.data_ptr(), bits_p, key_p, mix,
+                                 out.data_ptr(), x.numel(), *_fmt_args(fmt), _stream())
     _launched(rc, "quant_rand")
     return out
 
 
-def quant_rand_bwd(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+def quant_rand_bwd(x: torch.Tensor, alpha: torch.Tensor, bits,
                    g: torch.Tensor, fmt: FP8Format = E4M3):
-    """STE backward of :func:`quant_rand` (same bits): ``(gx, g_alpha)``,
-    g_alpha 0-dim."""
-    if _on_cpu(x, alpha, bits, g):
+    """STE backward of :func:`quant_rand` (the same bits or key): ``(gx,
+    g_alpha)``, g_alpha 0-dim; one launch, through B2's workspace."""
+    if _on_cpu(x, alpha, _bits_tensor(bits), g):
         return ref.quant_rand_bwd(x, alpha, bits, g, fmt)
     _check(x, "x", torch.float32)
-    _check(bits, "bits", torch.uint32, tuple(x.shape))
     _check(g, "g", torch.float32, tuple(x.shape))
     _check_scalar_alpha(alpha)
-    lib = load()
+    bits_p, key_p, mix = _rand_bits(x, bits)
     gx = torch.empty_like(x)
-    partial = torch.empty(lib.repro_quant_det_bwd_blocks(x.numel()),
-                          dtype=torch.float32, device=x.device)
     ga = torch.empty((), dtype=torch.float32, device=x.device)
-    rc = lib.repro_quant_rand_bwd(
-        x.data_ptr(), alpha.data_ptr(), bits.data_ptr(), g.data_ptr(),
-        gx.data_ptr(), partial.data_ptr(), ga.data_ptr(), x.numel(),
-        *_fmt_args(fmt), _stream())
+    rc = load().repro_quant_rand_bwd(
+        x.data_ptr(), alpha.data_ptr(), bits_p, key_p, mix, g.data_ptr(), gx.data_ptr(),
+        _bwd_workspace(x.device).data_ptr(), ga.data_ptr(), x.numel(), *_fmt_args(fmt),
+        _stream())
     _launched(rc, "quant_rand_bwd")
     return gx, ga
 

@@ -17,6 +17,9 @@ halves of the constant so no intermediate exceeds 2^49.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
 from ..core.fp8 import _ALPHA_FLOOR, E4M3, FP8Format
@@ -189,6 +192,44 @@ def tile_counter_bits(shape: tuple[int, int], key2: torch.Tensor,
     return counter_bits(idx, k[0], k[1])
 
 
+SITE_MIX = 0x9E3779B9     # a weight site's number times this goes into its first key word
+
+
+def as_u32(t: torch.Tensor) -> torch.Tensor:
+    """int64 holding values in [0, 2^32) -> the same bits as uint32 (through
+    int32 and a same-width view, which every device supports)."""
+    return t.to(torch.int32).view(torch.uint32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CounterKey:
+    """One weight site's stochastic-rounding bits, as a key: the counter RNG
+    over the element index of the site's weight, keyed by ``key2`` (the
+    client step's ``(2,)`` u32 words) with the site number mixed into the
+    first word. :meth:`bits` materializes them; the B6 kernels draw the same
+    bits inside (``csrc/quant_rand.cu``), so none are made on the card."""
+
+    key2: torch.Tensor   # (2,) uint32
+    site: int
+
+    @property
+    def mix(self) -> int:
+        """The site's word, xor-ed into the first key word."""
+        return (self.site * SITE_MIX) & _M32
+
+    def bits(self, shape) -> torch.Tensor:
+        """The site's u32 bits of ``shape``, on ``key2``'s device."""
+        k = self.key2.to(torch.int64)
+        idx = torch.arange(math.prod(shape), dtype=torch.int64, device=k.device)
+        return as_u32(counter_bits(idx, k[0] ^ self.mix, k[1])).reshape(tuple(shape))
+
+
+def site_bits(bits, shape) -> torch.Tensor:
+    """A site's u32 bits of ``shape``: ``bits`` itself, or a
+    :class:`CounterKey`'s bits materialized."""
+    return bits.bits(shape) if isinstance(bits, CounterKey) else bits
+
+
 def _round_rand(y: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Stochastic rounding from u32 ``bits`` (any integer dtype), as the
     kernels: ``u = bits * 2^-32``, ``floor(y) + 1{u < y - floor(y)}``."""
@@ -197,10 +238,11 @@ def _round_rand(y: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return fl + (u < (y - fl)).to(torch.float32)
 
 
-def quant_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+def quant_rand(x: torch.Tensor, alpha: torch.Tensor, bits,
                fmt: FP8Format = E4M3) -> torch.Tensor:
     """Twin of ``_quant_rand_kernel``: Q_rand with a per-tensor scalar alpha
-    and external u32 ``bits`` of x's shape."""
+    and external u32 ``bits`` of x's shape (or a :class:`CounterKey`)."""
+    bits = site_bits(bits, x.shape)
     a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
     b = _bias(a, fmt)
     xc = _clip(x, a)
@@ -208,10 +250,12 @@ def quant_rand(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
     return s * _round_rand(xc / s, bits)
 
 
-def quant_rand_bwd(x: torch.Tensor, alpha: torch.Tensor, bits: torch.Tensor,
+def quant_rand_bwd(x: torch.Tensor, alpha: torch.Tensor, bits,
                    g: torch.Tensor, fmt: FP8Format = E4M3):
     """Twin of ``_quant_rand_bwd_kernel``: :func:`quant_det_bwd` with the
-    forward's stochastic ``q`` (same bits) in the scale term."""
+    forward's stochastic ``q`` (same bits, or the same :class:`CounterKey`)
+    in the scale term."""
+    bits = site_bits(bits, x.shape)
     a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
     b = _bias(a, fmt)
     inside = (torch.abs(x) <= a).to(torch.float32)

@@ -59,7 +59,7 @@ class _Sites:
         self.n = 0
         self.bits = bits if qcfg.stochastic_weights else None
 
-    def next(self, shape) -> torch.Tensor | None:
+    def next(self, shape):
         self.n += 1
         return None if self.bits is None else self.bits(self.n, tuple(shape))
 

@@ -16,6 +16,8 @@ the twin's own worst or 2^-20 (``ref.within_bar``), nonzero only where the
 masked f64 product is (``ref.stray_nonzeros``), and two
 calls bitwise equal.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -139,15 +141,25 @@ def _bits(shape, seed, dev):
         torch.int32).view(torch.uint32).to(dev)
 
 
-# every MLP and LeNet QAT weight shape, and a multi-block ragged shape
-RAND_SHAPES = [(32, 64), (64, 64), (64, 10), (5, 5, 3, 6), (5, 5, 6, 16),
-               (1024, 120), (120, 84), (84, 10), (8191, 1024)]
+# every MLP and LeNet QAT weight shape (the rand-qat MLP's (64, 100) too), a
+# multi-block ragged shape, odd lengths around the 16-byte vectors, and
+# 2^21 + 3 (the scale table)
+RAND_SHAPES = [(32, 64), (64, 64), (64, 10), (64, 100), (5, 5, 3, 6), (5, 5, 6, 16),
+               (1024, 120), (120, 84), (84, 10), (8191, 1024), (1,), (7,), (9,), (4097,),
+               (2 ** 21 + 3,)]
 
 
+def _site_key(seed, site, dev):
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randint(0, 2 ** 32, (2,), generator=g, dtype=torch.int64)
+    return ref.CounterKey(k.to(torch.int32).view(torch.uint32).to(dev), site)
+
+
+@pytest.mark.parametrize("route", ["bits", "counter"])
 @pytest.mark.parametrize("shape", RAND_SHAPES)
-def test_quant_rand_pair_bitwise_against_twins(dev, shape):
+def test_quant_rand_pair_bitwise_against_twins(dev, shape, route):
     x = _randn(shape, 7, 0.2, dev)
-    bits = _bits(shape, 8, dev)
+    bits = _bits(shape, 8, dev) if route == "bits" else _site_key(8, 3, dev)
     g = _randn(shape, 9, 1.0, dev).abs() * torch.sign(x)
     a = x.abs().max() * 0.8
     assert torch.equal(fp8_quant.quant_rand(x, a, bits), ref.quant_rand(x, a, bits))
@@ -155,6 +167,145 @@ def test_quant_rand_pair_bitwise_against_twins(dev, shape):
     rgx, rga = ref.quant_rand_bwd(x, a, bits, g)
     assert torch.equal(gx, rgx)
     np.testing.assert_allclose(float(ga), float(rga), rtol=1e-5)
+    gx2, ga2 = fp8_quant.quant_rand_bwd(x, a, bits, g)
+    assert torch.equal(gx2, gx) and torch.equal(ga2, ga)
+
+
+def test_quant_rand_routes_agree_and_take_misaligned_views(dev):
+    """The counter route is bitwise the bits route on the key's materialized
+    bits, and both take operands whose offsets differ mod 16."""
+    key = _site_key(21, 5, dev)
+    for shape in ((64, 100), (8191, 1024)):
+        x = _randn(shape, 22, 0.3, dev)
+        a = x.abs().max() * 0.7
+        assert torch.equal(fp8_quant.quant_rand(x, a, key),
+                           fp8_quant.quant_rand(x, a, key.bits(shape)))
+    n = (1 << 19) + 3   # past the one-element shapes, short of the scale table
+    base = _randn((n + 8,), 23, 0.3, dev)
+    bits = _bits((n + 8,), 24, dev)
+    g = _randn((n + 8,), 25, 1.0, dev)
+    a = base.abs().max() * 0.7
+    for ox, ob, og in ((0, 0, 0), (1, 0, 2), (3, 3, 3)):
+        x, b, gg = base[ox:ox + n], bits[ob:ob + n], g[og:og + n]
+        assert torch.equal(fp8_quant.quant_rand(x, a, b), ref.quant_rand(x, a, b))
+        gx, _ = fp8_quant.quant_rand_bwd(x, a, b, gg)
+        assert torch.equal(gx, ref.quant_rand_bwd(x, a, b, gg)[0])
+
+
+def _lead_in():
+    """50 ms and spin kernels that start a profiled region whose kernels are
+    counted: the profiler on the card loses device records at the start of a
+    trace (those of its first millisecond in some traces, and its earliest
+    records, more the more traces the process has taken), and the loss falls
+    on them."""
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+    for _ in range(256):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def _cuda_kernels(prof):
+    """The device kernels of a profile that began with ``_lead_in``, which
+    must still show some of its spin kernels; those are left out."""
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and "memset" not in e.key.lower() and "memcpy" not in e.key.lower()]
+    assert any("spin_kernel" in e.key for e in rows), "the profiler lost the whole lead-in"
+    return [e for e in rows if "spin_kernel" not in e.key]
+
+
+@pytest.mark.parametrize("route", ["bits", "counter"])
+@pytest.mark.parametrize("shape", [(64, 100), (8191, 1024)])
+def test_quant_rand_bwd_is_one_kernel_a_call(dev, shape, route):
+    from torch.profiler import ProfilerActivity, profile
+    x = _randn(shape, 26, 0.3, dev)
+    g = _randn(shape, 27, 1.0, dev)
+    bits = _bits(shape, 28, dev) if route == "bits" else _site_key(28, 2, dev)
+    a = x.abs().max() * 0.8
+    fp8_quant.quant_rand_bwd(x, a, bits, g)   # the workspace is allocated before the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _lead_in()
+        for _ in range(3):
+            fp8_quant.quant_rand_bwd(x, a, bits, g)
+        torch.cuda.synchronize()
+    kernels = _cuda_kernels(prof)
+    assert all("quant_rand_bwd_kernel" in e.key for e in kernels), [e.key for e in kernels]
+    assert sum(e.count for e in kernels) == 3
+
+
+def test_a_rand_qat_site_is_one_kernel_each_way_with_a_counter_key(dev):
+    """A weight site of the rand-qat path as the engine runs it: its key from
+    ``CounterQatBits``, one B6 kernel forward and one backward, no bits
+    tensor made, and no ``sum_partials_kernel`` anywhere."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine import CounterQatBits
+    g = torch.Generator().manual_seed(29)
+    keys = torch.randint(0, 2 ** 32, (2, 3, 2), generator=g, dtype=torch.int64)
+    src = CounterQatBits(keys.to(torch.int32).view(torch.uint32).to(dev))
+    w = _randn((64, 100), 30, 0.3, dev).requires_grad_()
+    a = (w.detach().abs().max() * 0.8).requires_grad_()
+    gw = _randn((64, 100), 31, 1.0, dev)
+    dispatch.quantize_rand(w, a, src.provider(1, 2)(3, (64, 100))).backward(gw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_f:
+        _lead_in()
+        key = src.provider(1, 2)(3, (64, 100))
+        out = dispatch.quantize_rand(w, a, key)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_b:
+        _lead_in()
+        gx, ga = torch.autograd.grad(out, (w, a), gw)
+        torch.cuda.synchronize()
+    fwd, bwd = _cuda_kernels(prof_f), _cuda_kernels(prof_b)
+    assert [e.key.split("<")[0].removeprefix("void ") for e in fwd] == ["quant_rand_kernel"]
+    assert sum(e.count for e in fwd) == 1
+    assert [e.key.split("<")[0].removeprefix("void ") for e in bwd] == ["quant_rand_bwd_kernel"]
+    assert sum(e.count for e in bwd) == 1
+    assert isinstance(key, ref.CounterKey)
+    bits = key.bits((64, 100))
+    assert torch.equal(out, ref.quant_rand(w.detach(), a.detach(), bits))
+    rgx, rga = ref.quant_rand_bwd(w.detach(), a.detach(), bits, gw)
+    assert torch.equal(gx, rgx)
+    np.testing.assert_allclose(float(ga), float(rga), rtol=1e-5)
+
+
+def test_no_path_launches_sum_partials_kernel(dev):
+    """The second pass of the first port's backward is gone: a rand-qat
+    MLP round launches B6 and B2 one kernel a backward call, and nothing
+    named ``sum_partials_kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import optim
+    from repro_torch.core.engine import FedConfig
+    from repro_torch.core.fedsim import FedSim
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.data import partition_iid, synthetic_classification
+    from repro_torch.models import small
+    x, y = synthetic_classification(0, 400, d=32, n_classes=10, noise=1.0)
+    cx, cy, nk = partition_iid(x, y, k=4, seed=0)
+    cfg = FedConfig(n_clients=4, participation=0.5, local_steps=2, batch_size=8,
+                    qat=QATConfig(mode="rand"))
+    sim = FedSim(small.init_mlp(0, device=dev), small.make_loss(small.apply_mlp),
+                 small.apply_mlp, optim.sgd(0.05), cfg, cx, cy, nk, device=dev)
+    sim.run(1, seed=0)
+    torch.cuda.synchronize()
+    fp8_quant.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _lead_in()
+        sim.run(1, seed=1)
+        torch.cuda.synchronize()
+    counts = {}
+    for e in _cuda_kernels(prof):
+        k = e.key.removeprefix("void ").split("(")[0].split("<")[0]
+        counts[k] = counts.get(k, 0) + e.count
+    assert "sum_partials_kernel" not in counts, counts
+    assert fp8_quant.LAUNCHES["quant_rand_bwd"] > 0
+    assert counts.get("quant_rand_bwd_kernel", 0) == fp8_quant.LAUNCHES["quant_rand_bwd"]
+    assert counts.get("quant_rand_kernel", 0) == fp8_quant.LAUNCHES["quant_rand"]
+    assert counts.get("quant_det_bwd_kernel", 0) == fp8_quant.LAUNCHES["quant_det_bwd"]
 
 
 @pytest.mark.parametrize("shape", [(135, 1024), (8191, 1024)])
@@ -502,8 +653,7 @@ def test_qat_matmul_kernels_bitwise_against_twins(dev, shape):
     clip cotangent within 1e-5 of the twin's. (45, 203, 331) is ragged on
     every axis (odd N: dw's scalar epilogue); (1024, 2048, 256) and (256,
     2048, 256) are wk / wv's tile-starved (K, N) at the trainer's and the
-    federated cell's M; (1100, 300, 520) takes dw past M = 1024, where its
-    chains are promoted."""
+    federated cell's M; (1100, 300, 520) takes dw past M = 1024."""
     from repro_torch.kernels import fp8_matmul
     x, w, beta, alpha, g = _matmul_case(*shape, 21, dev)
     _bar(fp8_matmul.qat_matmul(x, w, beta, alpha), ref.qat_matmul(x, w, beta, alpha),
