@@ -37,9 +37,9 @@ Phases, each fatal on failure (the script then exits non-zero):
    and at (8191, 1024): codes bitwise, the amax encodes' codes equal to the
    plain encodes' and their row max equal to ``torch.amax(|x|)``, the FP4
    transit within 1 f32 ULP of ``fake_quant_tiles`` at the FP4 format.
-   Bitwise (the PR 11 kernels with at most 1e-5 of elements allowed to
-   differ, adjacent-grid ties), and each scalar clip cotangent at relative
-   1e-5 with a cotangent signed like x. Then the rANS pair (B12
+   Bitwise (B1 in f32 with at most 1e-5 of elements allowed to differ,
+   adjacent-grid ties; the wire pair exactly), and each scalar
+   clip cotangent at relative 1e-5 with a cotangent signed like x. Then the rANS pair (B12
    ``rans_decode`` and the encode, ``rans_kernel_phase``) on the real code
    streams of the format MLP and of LeNet (E4M3 and FP4, plain and delta,
    each against its table), on cohorts of three real uplink streams in one
@@ -107,14 +107,20 @@ Phases, each fatal on failure (the script then exits non-zero):
    dx and dw call of one real full-width local step, its clip cotangent
    within max(4x the twin's, 2^-20) of its terms' magnitude sum from the f64
    one (``ref.clip_within_bar``) (``lm_kernel_phase``, right after phase
-   2); one reduced-TinyLlama local
+   2); the FP8 wire pair at the LM cell's own wire plane (1074176 x 1024:
+   full-width TinyLlama-1.1B's init weights with the per-element clips its
+   encode hands the kernels, and their column), det and counter-RNG, codes
+   and values bitwise against the twins in row chunks, two calls equal,
+   one launch a call, each timed beside its bytes bound
+   (``lm_wire_phase``); one reduced-TinyLlama local
    step on the card against the CPU
    twins (``lm_card_vs_cpu_phase``, after phase 3); then
    ``repro_torch.bench.fed_lm`` at the example's defaults for 2 rounds, the
    counters zeroed just before and read just after: 8802606752 wire bytes a
    round, 5184 launches of each B10/B11 kernel a round, 5 of each wire
    kernel, a finite loss; prints s/round, the peak device memory and the
-   profiled second round's device busy (``lm_main_path_phase``).
+   profiled second round's device busy, with the device us a launch of
+   B10/B11 and of the wire pair (``lm_main_path_phase``).
 8. the one-device LM trainer (``repro_torch.launch.train``): B7
    ``quant_det_tiles`` / ``quant_det_tiles_bwd`` against their twins at the
    full-width TinyLlama-1.1B plane (1,074,176 x 1024), the reduced model's
@@ -139,10 +145,12 @@ Phases, each fatal on failure (the script then exits non-zero):
    kernel a B2 call); then 2 steps at opt_level 0:
    B10/B11 at every projection, no B7 (``trainer_main_path_phase``).
 
-The second-to-last line is a JSON object with one entry per kernel (its
-launches counted on the path that runs it; B1/B2 also over every path of
-phases 4-8); the last line is
-``{"ok": true, "device": {...}}``.
+Before the JSON lines, one ``[launches]`` line: each wire kernel's launches
+(the FP8 and FP4 pairs, B5 and the three amax encodes) summed over every
+path of phases 4-8, and by path. The second-to-last line is a JSON object
+with one entry per kernel (its launches counted on the path that runs it;
+B1/B2 and the wire kernels also over every path of phases 4-8); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -440,8 +448,8 @@ def kernel_phase(dev) -> dict:
     # the tile kernels: random tiles at every task's plane/wire shape and at
     # the large shape (alpha a row-max column), then each task's real plane
     # with its own alpha column; alpha also per element, det and counter-RNG.
-    # The wire pair within the PR 11 tie budget; fake_quant_tiles (B5)
-    # bitwise against its twin and within 1 f32 ULP of encode -> decode.
+    # The wire pair and fake_quant_tiles (B5) bitwise against their twins,
+    # B5 within 1 f32 ULP of encode -> decode.
     tile_cases = []
     for shape in [tuple(w2.shape) for _, w2, _ in planes] + [LARGE]:
         x = randn(shape, 0.2)
@@ -454,11 +462,11 @@ def kernel_phase(dev) -> dict:
                 c = K.quant_pack_tiles(x, a2, k2)
                 bad, err = mismatches(c, R.quant_pack_tiles(x, a2, k2))
                 worst["quant_pack_tiles"] = max(worst["quant_pack_tiles"], err)
-                check(bad <= TIE_FRAC * c.numel(), f"quant_pack_tiles {lab}: {bad} codes differ")
+                check(bad == 0, f"quant_pack_tiles {lab}: {bad} codes differ")
                 wire_vals = K.unpack_tiles(c, a2)
                 bad, err = mismatches(wire_vals, R.unpack_tiles(c, a2))
                 worst["unpack_tiles"] = max(worst["unpack_tiles"], err)
-                check(bad <= TIE_FRAC * c.numel(), f"unpack_tiles {lab}: {bad} values differ")
+                check(bad == 0, f"unpack_tiles {lab}: {bad} values differ")
                 q = K.fake_quant_tiles(x, a2, k2)
                 bad, err = mismatches(q, R.fake_quant_tiles(x, a2, k2))
                 worst["fake_quant_tiles"] = max(worst["fake_quant_tiles"], err)
@@ -936,6 +944,22 @@ PATH_KERNELS = {
 }
 
 
+# every wire kernel: the FP8 pair, B5, the FP4 pair and the three amax encodes
+WIRE_KERNELS = ("quant_pack_tiles", "unpack_tiles", "fake_quant_tiles", "quant_pack_sub_tiles",
+                "unpack_sub_tiles", "quant_pack_amax_tiles", "quant_pack_sub_amax_tiles",
+                "fake_quant_amax_tiles")
+
+
+def launches_by_path(uq, uqp, grid, fmt, lm, trainer, b9) -> dict:
+    """Each path of phases 4-8 (each driven with the counters zeroed just
+    before and read just after): the launches of every kernel on it."""
+    return {"cifar10-lenet uq": uq["launches"], "cifar10-lenet uq+": uqp["launches"],
+            f"table1 grid ({GRID_ROUNDS} rounds)": grid["table1_launches"],
+            "table2 rand-qat": grid["launches"], "format ablation": fmt["launches"],
+            "format ablation pareto": fmt["pareto_launches"], "fed_lm": lm["launches"],
+            "launch.train": trainer["launches"], "fake_quant_amax_plane": b9["launches"]}
+
+
 def _make_sim(dev, task_name: str, method: str, sc: dict, **cfg_kw):
     """A ``FedSim`` for ``method`` on ``task_name`` built from the bench
     drivers' pieces (``repro_torch.bench.common``) at scale ``sc``, with
@@ -1117,9 +1141,10 @@ def profile_round(sim, s_round: float, label: str) -> dict:
           f"{launches['quant_rand_bwd']} B6 calls, one kernel each; no sum_partials_kernel "
           f"({seen} of the {LEAD_IN} lead-in kernels recorded)")
     ours = ("quant_det_kernel", "quant_det_bwd_kernel", "quant_pack_kernel", "unpack_kernel",
-            "fake_quant_kernel", "quant_rand_kernel", "quant_rand_bwd_kernel",
-            "quant_pack_sub_kernel", "unpack_sub_kernel", "quant_pack_amax_kernel",
-            "rans_encode_kernel", "rans_decode_kernel")
+            "quant_pack_elem_kernel", "unpack_elem_kernel", "fake_quant_kernel",
+            "quant_rand_kernel", "quant_rand_bwd_kernel", "quant_pack_sub_kernel",
+            "unpack_sub_kernel", "quant_pack_amax_kernel", "rans_encode_kernel",
+            "rans_decode_kernel")
     per_launch = {}
     for e in rows:
         name = e.key.removeprefix("void ").split("(")[0]  # a template: "void f<1>(...)"
@@ -1391,6 +1416,7 @@ LM_ROUND_BYTES = 8802606752         # 4 clients x 2 legs x 1100325844 (reference
 LM_STEP_LAUNCHES = 22 * 7 + 8       # each B10/B11 kernel: 7 projections a layer + 8 CE chunks
 LM_ROUND_LAUNCHES = 4 * 8 * LM_STEP_LAUNCHES   # P = 4 clients x U = 8 local steps
 LM_WIRE_LAUNCHES = 5                # quant_pack_tiles / unpack_tiles: 1 down + 4 up
+LM_WIRE_INSTANCE = {"quant_pack_tiles": "quant_pack_kernel", "unpack_tiles": "unpack_kernel"}
 LM_RAGGED = (77, 130, 200)          # (M, K, N), no dimension a tile multiple
 LM_MAIN_SHAPE = (256, 2048, 5632)   # w_gate / w_up, the largest share of a step's products
 TRAIN_BATCH = (8, 128)              # launch.train's default batch x sequence
@@ -1649,6 +1675,55 @@ def lm_kernel_phase(dev) -> dict:
     return {"worst": worst, "timings": timings, "real_step_clips": clips}
 
 
+def lm_wire_phase(dev) -> dict:
+    """The FP8 wire pair at the LM cell's own wire plane (full-width
+    TinyLlama-1.1B's init weights in the wire's tiles, with the per-element
+    alpha tiles its encode hands the kernels, ``qat_probe.lm_wire_plane``),
+    E4M3 as the cell runs it, det and counter-RNG, that layout and its
+    (R, 1) column: B3's codes and B4's values bitwise against the twins (in
+    row chunks, the counter bits at each chunk's rows), two calls bitwise
+    equal, one launch a call; each timed (CUDA events) beside its bytes
+    bound. Returns the timings of the cell's own case (rand, per element)."""
+    import qat_probe
+    from repro_torch.core.fp8 import E4M3
+    from repro_torch.kernels import fp8_quant as K
+    from repro_torch.kernels import ref as R
+
+    t0 = time.perf_counter()
+    x, a_full, col = qat_probe.lm_wire_plane(dev)
+    key = torch.tensor([0x9E3779B9, 0x7F4A7C15], dtype=torch.int64).to(torch.uint32).to(dev)
+    n, rows = x.numel(), x.shape[0]
+    timings = {}
+    for layout, a2 in (("full", a_full), ("column", col)):
+        for rnd, k in (("rand", key), ("det", None)):
+            r = qat_probe.wire_check(K, R, x, a2, k, E4M3, qat_probe.WIRE_CHUNK)
+            label = f"lm {layout} {rnd}"
+            check(r["bad_codes"] == 0 and r["bad_values"] == 0,
+                  f"{label}: {r['bad_codes']} codes and {r['bad_values']} values differ")
+            check(r["repeat_bitwise"] and r["one_launch_each"],
+                  f"{label}: two calls differ or not one launch a call ({r})")
+            codes = K.quant_pack_tiles(x, a2, k)
+            b_pack, b_unpack = qat_probe.wire_bytes(n, rows, layout == "full", k is not None)
+            for name, fn, n_bytes in (
+                    ("quant_pack_tiles", lambda: K.quant_pack_tiles(x, a2, k), b_pack),
+                    ("unpack_tiles", lambda: K.unpack_tiles(codes, a2), b_unpack)):
+                ms = time_ms(fn, reps=5, iters=5, warmup=2)
+                b_ms, b_by = bound(n_bytes, 0)
+                timings.setdefault(name, {})[label] = dict(
+                    ms=ms, bound_ms=b_ms, bound_by=b_by, shape=[rows, 1024])
+                print(f"[time] {name:17s} {label:15s} {str((rows, 1024)):18s} kernel "
+                      f"{ms:.5f} ms  bound {b_ms:.6f} ms ({b_by}, "
+                      f"{100 * b_ms / ms:.1f}% of it)")
+            del codes
+    print(f"[lm-wire] B3/B4 at the LM wire plane {(rows, 1024)}: codes and values bitwise the "
+          f"twins' (det and rand, per-element alpha and its column), two calls equal, one "
+          f"launch a call; alpha constant along every row: {bool((a_full == col).all())} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del x, a_full, col
+    torch.cuda.empty_cache()
+    return {name: t["lm full rand"] for name, t in timings.items()}
+
+
 def lm_card_vs_cpu_phase(dev) -> None:
     """One reduced-TinyLlama local step (loss, every gradient, one AdamW(1e-3)
     update) on the card against the same step on the CPU twins, from the
@@ -1798,7 +1873,11 @@ def lm_main_path_phase(dev) -> dict:
           f"{rows[0]['wire_bytes']}, peak device memory {peak} B "
           f"({peak / 2 ** 30:.2f} GiB), launches {launches}")
     prof_wall = rows[-1]["s_per_round"] * 1e6
-    stats = _profile_kernels(prof, prof_wall, s_round, "lm round 2")
+    stats = _profile_kernels(prof, prof_wall, s_round, "lm round 2",
+                             {**QAT_GEMM_INSTANCE, **LM_WIRE_INSTANCE})
+    print(f"[lm] profiled round 2: " + "; ".join(
+        f"{name} {stats['device_us'].get(name, float('nan')):.2f} us of device time a launch"
+        for name in LM_WIRE_INSTANCE))
     return {"launches": launches, "s_per_round": s_round, "peak_mem_bytes": peak, **stats}
 
 
@@ -2320,6 +2399,7 @@ def main() -> int:
     kern["timings"].update(rans_kern["timings"])
     lm_kern = lm_kernel_phase(dev)
     kern["worst"].update(lm_kern["worst"])
+    lm_wire = lm_wire_phase(dev)
     trainer_kern = trainer_kernel_phase(dev)
     kern["worst"].update(trainer_kern["worst"])
     round_phase(dev)
@@ -2352,6 +2432,12 @@ def main() -> int:
         if name.startswith("quant_rand"):
             return "table2 rand-qat", grid["launches"][name]
         return "cifar10-lenet uq+", uqp["launches"][name]
+
+    by_path = launches_by_path(uq, uqp, grid, fmt, lm, trainer, b9)
+    totals = {name: {"all_paths": sum(v[name] for v in by_path.values()),
+                     "by_path": {p: v[name] for p, v in by_path.items() if v[name]}}
+              for name in WIRE_KERNELS}
+    print(f"[launches] wire kernels over every path of phases 4-8: {json.dumps(totals)}")
 
     rows = []
     for name in K.KERNELS:
@@ -2387,25 +2473,20 @@ def main() -> int:
         t = kern["timings"][name]["main"]
         extra = {}
         if name in ("quant_det", "quant_det_bwd"):
-            by_path = {"cifar10-lenet uq": uq["launches"][name],
-                       "cifar10-lenet uq+": uqp["launches"][name],
-                       f"table1 grid ({GRID_ROUNDS} rounds)": grid["table1_launches"][name],
-                       "table2 rand-qat": grid["launches"][name],
-                       "format ablation": fmt["launches"][name],
-                       "format ablation pareto": fmt["pareto_launches"][name],
-                       "fed_lm": lm["launches"][name],
-                       "launch.train": trainer["launches"][name]}
+            paths = {p: v[name] for p, v in by_path.items()}
             extra = {"bf16": {shp: v[name] for shp, v in
                               trainer_kern["timings"]["bf16"].items()},
                      "trainer_launches": trainer["launches"][name],
                      "trainer_device_us": trainer["device_us"].get(name),
-                     "launches_by_path": by_path,
-                     "launches_all_paths": sum(by_path.values())}
+                     "launches_by_path": paths,
+                     "launches_all_paths": sum(paths.values())}
         if name.startswith("quant_rand"):
             # the main path's route draws the bits in the kernel; the read
             # route (the reference's replayed bits) beside it
             extra = {"bits_route": kern["timings"][name + " bits"],
                      "device_us": grid["device_us"][name]}
+        if name in LM_WIRE_INSTANCE:
+            extra = {"lm": lm_wire[name], "lm_device_us": lm["device_us"].get(name)}
         if name in FORMAT_KERNELS:
             extra = {"mlp": kern["timings"][name]["mlp"], "device_us": fmt["device_us"][
                 PROFILED_IN[name][0]].get(PROFILED_IN[name][1])}
@@ -2428,6 +2509,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
             "large": kern["timings"][name]["large"], **extra,
+            **({"launches_by_path": totals[name]["by_path"],
+                "launches_all_paths": totals[name]["all_paths"]} if name in totals else {}),
         })
     print(f"[setup] whole run {time.perf_counter() - t_start:.1f} s")
     print(f"[setup] {smi}")

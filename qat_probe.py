@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""What bounds the QAT kernels B1/B2 and the stochastic pair B6 on the card.
+"""What bounds the QAT kernels B1/B2, the stochastic pair B6 and the FP8 wire
+pair B3/B4 on the card.
 
-Run from the repository root:  python3 qat_probe.py [--src DIR] [--b6]
+Run from the repository root:  python3 qat_probe.py [--src DIR] [--b6 | --wire]
 
 At the one-device trainer's bf16 activation shapes (batch 8 x 128 tokens:
 (8, 128, 2048), (8, 128, 5632), and a CE chunk's (8, 16, 2048)), at f32
@@ -9,8 +10,9 @@ At the one-device trainer's bf16 activation shapes (batch 8 x 128 tokens:
 kernel:
 
 - its device time a call (``device_us``: the self device time of every
-  CUDA kernel that 50 back-to-back calls launched, under ``torch.profiler``,
-  over 50; the inputs stay in the 50 MB L2 between calls) beside its bytes
+  CUDA kernel that 50 back-to-back calls launched, under ``torch.profiler``
+  after a lead-in of spin kernels, over 50; the inputs stay in the 50 MB L2
+  between calls) beside its bytes
   bound (each input read once, each output written once, over 3.35 TB/s)
   and the fraction of the bound it reaches; also the wall time a call of
   back-to-back wrapper calls (``call_ms``, CUDA events), which at these
@@ -46,11 +48,23 @@ cifar100-mlp and at (8191, 1024):
   their median, the round's top kernels, B6's kernels and the site bits (a
   ``record_function`` range around each provider call) in it.
 
+With ``--wire``, only the FP8 wire pair B3 ``quant_pack_tiles`` / B4
+``unpack_tiles`` (:func:`measure_wire`): at (9, 1024), (135, 1024), (8191,
+1024) (random tiles, alpha 0.9 x each row's max) and at the LM cell's own
+wire plane (:func:`lm_wire_plane`: full-width TinyLlama-1.1B's init
+weights in the wire's tiles, with the alpha tiles its encode hands the
+kernels), det and counter-RNG rounding, E4M3 and E5M2, alpha as an (R, 1)
+column and as (R, 1024): each kernel's device time and stream time a call
+beside its bytes bound, and its output against its twin bit for bit
+(at the LM plane in row chunks), two calls bitwise equal, one launch a
+call.
+
 ``--b6`` runs only the B6 part. With ``--src DIR`` it times the kernels of
 the package under ``DIR/src`` instead (for example an unpacked parent
 commit), and runs only the probes and routes that package has. Needs a
 card; prints ``{"qat_probe": ...}`` last. ``chip_smoke.py`` calls
-:func:`measure` too.
+:func:`measure`, :func:`lm_wire_plane`, :func:`wire_case` and
+:func:`wire_check` too, and ``tests/test_torch_cuda.py`` :func:`wire_check`.
 """
 from __future__ import annotations
 
@@ -93,22 +107,46 @@ def time_ms(fn, reps: int = 7, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(samples)
 
 
+LEAD_IN = 256   # spin kernels that start a profile whose kernels are counted
+
+
+def _lead_in() -> None:
+    """50 ms, then LEAD_IN spin kernels: the profiler on the card drops
+    device records at a trace's start (chip_smoke.py's ``_lead_in``), and
+    the loss falls on them."""
+    import torch
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+    for _ in range(LEAD_IN):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def _counted_rows(prof):
+    """A lead-in profile's device rows without the spin kernels, or None
+    where the profiler lost the whole lead-in (it may then have lost more)."""
+    rows = _cuda_rows(prof)
+    if not any("spin_kernel" in e.key for e in rows):
+        return None
+    return [e for e in rows if "spin_kernel" not in e.key]
+
+
 def device_us(fn, iters: int = 50) -> float:
     """Device time a call of ``fn``, us: the summed self device time of
-    every CUDA kernel ``iters`` calls launched (torch.profiler), over
-    ``iters``."""
+    every CUDA kernel ``iters`` calls launched (torch.profiler, after the
+    lead-in), over ``iters``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(5):   # a profile now and then comes back without device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead_in()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-        total = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+        rows = _counted_rows(prof)
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in rows or ())
         if total > 0:
             return total / iters
         time.sleep(0.1)
@@ -308,10 +346,11 @@ def profile_calls(calls, warm=None) -> dict:
     torch.cuda.synchronize()
     for _ in range(5):   # a profile now and then comes back without device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead_in()
             for fn in calls:
                 fn()
             torch.cuda.synchronize()
-        rows = _cuda_rows(prof)
+        rows = _counted_rows(prof) or []
         total = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
         if total > 0:
             names = {}
@@ -504,15 +543,154 @@ def log2f_monotone(dev, K) -> dict:
             "patterns": 0x7F7FFFFF + 1, "ms": start.elapsed_time(stop)}
 
 
+WIRE_SHAPES = ((9, 1024), (135, 1024), (8191, 1024))
+WIRE_CHUNK = 1 << 15       # rows of one twin check at the LM plane
+LM_ARCH = "tinyllama_1_1b"
+
+
+def wire_bytes(n: int, rows: int, full_alpha: bool, keyed: bool) -> tuple[int, int]:
+    """Bytes that B3 and B4 must move on n elements of ``rows`` tiles: x
+    (4 B an element) in, a code (1 B) out, or the reverse, a code in and a
+    value (4 B) out; alpha 4 B a row as a column or 4 B an element; B3's
+    key 8 B."""
+    a = 4 * n if full_alpha else 4 * rows
+    return 5 * n + a + (8 if keyed else 0), 5 * n + a
+
+
+def lm_wire_plane(dev):
+    """The LM cell's wire plane: full-width TinyLlama-1.1B's init weights
+    (the port's, seed 0) in the wire's ``(R, 1024)`` tiles, and the alpha
+    tiles that the cell's encode hands B3 and B4 (``wire.alpha_tiles``).
+    Its clips are stacked a layer, so that is the per-element ``(R, 1024)``
+    layout, constant along each row (every layer's slice fills whole rows).
+    Returns ``(x2, a2, col)``, ``col`` the first column of ``a2``."""
+    import torch
+
+    from repro_torch import configs, tree
+    from repro_torch.core import wire
+    from repro_torch.models import registry
+
+    params = registry.get_model(configs.get(LM_ARCH)).init(0, device=dev)
+    spec = wire.make_wire_spec(params)
+    leaves = tree.leaves(params)
+    x2 = wire.weight_tiles(leaves, spec)
+    a2 = wire.alpha_tiles(tuple(leaves[i] for i in spec.other_slots), spec)
+    del params, leaves
+    torch.cuda.empty_cache()
+    return x2, a2, a2[:, :1].contiguous()
+
+
+def _differ(a, b) -> int:
+    """Elements whose bits differ (f32 through int32: -0 and +0 differ)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def wire_check(K, R, x2, a2, key, fmt, chunk: int | None = None) -> dict:
+    """B3's codes and B4's values on them against the twins, bit for bit,
+    in row chunks of ``chunk`` (all rows at once when None); a second call
+    of each bitwise the first; one launch a call."""
+    import torch
+    before = dict(K.LAUNCHES)
+    codes = K.quant_pack_tiles(x2, a2, key, fmt)
+    vals = K.unpack_tiles(codes, a2, fmt)
+    one_each = (K.LAUNCHES["quant_pack_tiles"] - before["quant_pack_tiles"] == 1
+                and K.LAUNCHES["unpack_tiles"] - before["unpack_tiles"] == 1)
+    repeat = (torch.equal(K.quant_pack_tiles(x2, a2, key, fmt), codes)
+              and torch.equal(K.unpack_tiles(codes, a2, fmt).view(torch.int32),
+                              vals.view(torch.int32)))
+    rows = x2.shape[0]
+    step = chunk or rows
+    bad_codes = bad_vals = 0
+    for r0 in range(0, rows, step):
+        sl = slice(r0, r0 + step)
+        bad_codes += _differ(R.quant_pack_tiles(x2[sl], a2[sl], key, fmt, row0=r0), codes[sl])
+        bad_vals += _differ(R.unpack_tiles(codes[sl], a2[sl], fmt), vals[sl])
+    return {"bad_codes": bad_codes, "bad_values": bad_vals, "repeat_bitwise": repeat,
+            "one_launch_each": one_each}
+
+
+def wire_case(K, x2, a2, key, fmt) -> dict:
+    """Device time (profiler) and stream time a call of B3 and of B4, and
+    their bytes bounds, us."""
+    codes = K.quant_pack_tiles(x2, a2, key, fmt)
+    b_pack, b_unpack = wire_bytes(x2.numel(), x2.shape[0], a2.shape[1] != 1, key is not None)
+    out = {}
+    for name, fn, n_bytes in (
+            ("quant_pack_tiles", lambda: K.quant_pack_tiles(x2, a2, key, fmt), b_pack),
+            ("unpack_tiles", lambda: K.unpack_tiles(codes, a2, fmt), b_unpack)):
+        iters = 50 if x2.numel() < (1 << 26) else 10
+        out[name] = {"device_us": device_us(fn, iters), "stream_us": stream_us(fn, iters),
+                     "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6}
+    return out
+
+
+def measure_wire(dev, K, R, verbose: bool = True) -> dict:
+    """The wire pair at WIRE_SHAPES and at the LM plane (module docstring)."""
+    import torch
+
+    from repro_torch.core.fp8 import E4M3, E5M2
+
+    g = torch.Generator().manual_seed(24)
+    key = torch.tensor([0x9E3779B9, 0x7F4A7C15], dtype=torch.int64).to(torch.uint32).to(dev)
+    planes = []
+    for shape in WIRE_SHAPES:
+        x = (torch.randn(shape, generator=g) * 0.2).to(dev)
+        col = x.abs().amax(dim=1, keepdim=True) * 0.9
+        planes.append((str(shape), x, col, col.expand(shape).contiguous(), None))
+    t0 = time.perf_counter()
+    x, a_full, col = lm_wire_plane(dev)
+    row_const = bool((a_full == col).all())
+    planes.append((f"lm {tuple(x.shape)}", x, col, a_full, WIRE_CHUNK))
+    if verbose:
+        print(f"[wire-probe] LM wire plane {tuple(x.shape)} ({x.numel()} elements) made in "
+              f"{time.perf_counter() - t0:.1f} s; its alpha tiles constant along every row: "
+              f"{row_const}")
+    res = {"lm_rows": x.shape[0], "lm_alpha_row_constant": row_const, "cases": {}}
+    for label, x, col, full, chunk in planes:
+        for layout, a2 in (("column", col), ("full", full)):
+            for rnd, k in (("det", None), ("rand", key)):
+                for fmt in (E4M3, E5M2):
+                    case = f"{label} {layout} {rnd} E{fmt.exp}M{fmt.mant}"
+                    r = {**wire_case(K, x, a2, k, fmt), **wire_check(K, R, x, a2, k, fmt, chunk)}
+                    res["cases"][case] = r
+                    if verbose:
+                        print(f"[wire-probe] {case}: " + "; ".join(
+                            f"{n} device {r[n]['device_us']:.3f} us, stream "
+                            f"{r[n]['stream_us']:.3f} us, bound {r[n]['bound_us']:.3f} us "
+                            f"({100 * r[n]['bound_us'] / r[n]['device_us']:.1f}%)"
+                            for n in ("quant_pack_tiles", "unpack_tiles"))
+                            + f"; differ from the twins: {r['bad_codes']} codes, "
+                            f"{r['bad_values']} values; repeat bitwise {r['repeat_bitwise']}, "
+                            f"one launch each {r['one_launch_each']}")
+        del x, col, full
+    torch.cuda.empty_cache()
+    res["all_bitwise"] = all(r["bad_codes"] == 0 and r["bad_values"] == 0
+                             and r["repeat_bitwise"] and r["one_launch_each"]
+                             for r in res["cases"].values())
+    if verbose:
+        print(f"[wire-probe] every case bitwise the twins, repeatable, one launch a call: "
+              f"{res['all_bitwise']}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("qat_probe: no CUDA device", file=sys.stderr)
         return 1
     root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    # the wire pair's twins are this checkout's (``quant_pack_tiles``' row0
+    # for a chunk's counter bits), whichever package the kernels come from
+    from repro_torch.kernels import ref as R
     if "--src" in sys.argv[1:]:
         root = Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
-    sys.path.insert(0, str(root / "src"))
+        for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
+        sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import fp8_quant as K
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -520,8 +698,11 @@ def main() -> int:
     print(f"[qat-probe] kernels of {root}")
     K.build()
     dev = torch.device("cuda")
-    res = {} if "--b6" in sys.argv[1:] else measure(dev, K)
-    res["b6"] = measure_b6(dev)
+    if "--wire" in sys.argv[1:]:
+        res = {"wire": measure_wire(dev, K, R)}
+    else:
+        res = {} if "--b6" in sys.argv[1:] else measure(dev, K)
+        res["b6"] = measure_b6(dev)
     print(json.dumps({"qat_probe": res}))
     return 0
 

@@ -105,7 +105,7 @@ constexpr int kTabMax = 40;   // binades of a table: 2^e + 3 for e <= 5 fits
 constexpr int kThrMax = 32;   // thresholds T_2 .. T_P: P <= 2^e <= 33
 
 struct ScaleTable {
-  float4 e[kTabMax];   // binade i (exponent field base + i): {thr, s_lo, s_hi, 0}
+  float4 e[kTabMax];   // binade i (exponent field base + i): {thr, s_lo, s_hi, p_lo}
   float t[kThrMax];    // T_2 .. T_P
   int base;            // exponent field of binade 0
   int n;               // binades held
@@ -180,56 +180,81 @@ __device__ __forceinline__ void find_thresholds(float* thr, int n_thr, float b) 
   }
 }
 
+// P - 1, the thresholds T_2 .. T_P of a clip with la = log2f(a), bias b
+__device__ __forceinline__ int table_n_thr(float la, float b) {
+  const float pa = floorf(la + b);                       // exponent(a, b) before its max
+  return (pa > 1.0f ? (int)pa : 1) - 1;
+}
+
+// The binades a table for clip a spans, given its first n_thr thresholds
+// thr[]: from T_2's binade less one (*base) up to a's, *n of them
+__device__ __forceinline__ void table_span(float a, const float* thr, int n_thr, int* base,
+                                           int* n) {
+  const int ea = (int)(__float_as_uint(a) >> 23);          // a's binade
+  const int e2 = n_thr > 0 ? (int)(__float_as_uint(thr[0]) >> 23) : ea;
+  *base = e2 - 1;
+  *n = ea - *base + 1;
+}
+
+// Binade i of the table (exponent field base + i) from the sorted thresholds
+// t.t[0 .. n_thr): p below it is one more than the thresholds at or under its
+// bottom (a bisection), and the next threshold, if under its top, is the one
+// inside. Writes {that threshold (or +inf), s below it, s at or above it, p
+// below it} to t.e[i]; returns whether a second threshold lies inside too
+// (the table cannot hold the clip).
+__device__ __forceinline__ bool fill_binade(ScaleTable& t, int i, int base, int n_thr, float b,
+                                            const Fmt& f) {
+  const int e = base + i;
+  const float lo = e == 0 ? 0.0f : __uint_as_float((uint32_t)e << 23);
+  const float hi = __uint_as_float((uint32_t)(e + 1) << 23);
+  int j = 0, top = n_thr;                                    // first T_k above lo
+  while (j < top) {
+    const int mid = (j + top) >> 1;
+    if (t.t[mid] > lo) {
+      top = mid;
+    } else {
+      j = mid + 1;
+    }
+  }
+  const bool in1 = j < n_thr && t.t[j] < hi;
+  const float thr = in1 ? t.t[j] : __uint_as_float(0x7F800000u);   // +inf: none inside
+  t.e[i] = make_float4(thr, scale((float)(j + 1), b, f), scale((float)(j + 2), b, f),
+                       (float)(j + 1));
+  return in1 && j + 1 < n_thr && t.t[j + 1] < hi;
+}
+
 // Fill ``t`` for clip a, la = log2f(a), bias b; every thread of the block
 // calls it (it holds two __syncthreads and ends with one). The half-warps
-// find the thresholds, then thread i fills binade i: p below it is one more
-// than the thresholds at or under its bottom (a bisection of the sorted
-// T_k), and the next threshold, if under its top, is the one inside.
+// find the thresholds, then thread i fills binade i.
 __device__ __forceinline__ void scale_table_build(ScaleTable& t, float a, float la, float b,
                                                   const Fmt& f) {
-  const float pa = floorf(la + b);                       // exponent(a, b) before its max
-  const int n_thr = (pa > 1.0f ? (int)pa : 1) - 1;       // P - 1, P = p at |xc| = a
+  const int n_thr = table_n_thr(la, b);
   const int tid = threadIdx.x;
   if (tid == 0) t.ok = n_thr <= kThrMax ? 1 : 0;
   find_thresholds(t.t, n_thr < kThrMax ? n_thr : kThrMax, b);
   __syncthreads();
-  const int ea = (int)(__float_as_uint(a) >> 23);          // a's binade
-  const int e2 = n_thr > 0 ? (int)(__float_as_uint(t.t[0]) >> 23) : ea;
-  const int base = e2 - 1;                                   // T_2's binade less one
-  const int n = ea - base + 1;
+  int base, n;
+  table_span(a, t.t, n_thr, &base, &n);
   const bool fits = base >= 0 && n <= kTabMax && n_thr <= kThrMax;
   if (tid == 0) {
     t.base = base;
     t.n = n;
     if (!fits) t.ok = 0;
   }
-  if (fits && tid < n) {
-    const int e = base + tid;
-    const float lo = e == 0 ? 0.0f : __uint_as_float((uint32_t)e << 23);
-    const float hi = __uint_as_float((uint32_t)(e + 1) << 23);
-    int j = 0, top = n_thr;                                  // first T_k above lo
-    while (j < top) {
-      const int mid = (j + top) >> 1;
-      if (t.t[mid] > lo) {
-        top = mid;
-      } else {
-        j = mid + 1;
-      }
-    }
-    const bool in1 = j < n_thr && t.t[j] < hi;
-    if (in1 && j + 1 < n_thr && t.t[j + 1] < hi) t.ok = 0;   // two in one binade
-    const float thr = in1 ? t.t[j] : __uint_as_float(0x7F800000u);   // +inf: none inside
-    t.e[tid] = make_float4(thr, scale((float)(j + 1), b, f), scale((float)(j + 2), b, f),
-                           0.0f);
-  }
+  if (fits && tid < n && fill_binade(t, tid, base, n_thr, b, f)) t.ok = 0;
   __syncthreads();
+}
+
+// The table's row for |xc|'s bits m (binades e from exponent field base, n
+// of them)
+__device__ __forceinline__ float4 table_row(const float4* e, int base, int n, uint32_t m) {
+  return e[min(max((int)(m >> 23) - base, 0), n - 1)];
 }
 
 // s of det_code at the clipped xc, from the table
 __device__ __forceinline__ float table_scale(const ScaleTable& t, float xc) {
   const uint32_t m = __float_as_uint(xc) & 0x7FFFFFFFu;    // |xc|'s bits
-  const int i = min(max((int)(m >> 23) - t.base, 0), t.n - 1);
-  const float4 r = t.e[i];
+  const float4 r = table_row(t.e, t.base, t.n, m);
   return __uint_as_float(m) >= r.x ? r.z : r.y;
 }
 
@@ -366,6 +391,186 @@ __device__ __forceinline__ float decode_code(int code, float a, const Fmt& f) {
   const float s = exp2f(((float)p_eff - b) - (float)f.mant);
   const float mag = (float)v * s;
   return sign == 1 ? -mag : mag;
+}
+
+// --- the FP8 wire pair's per-row scale table (B3 quant_pack.cu, B4 unpack.cu) --
+//
+// Where every element of a row shares one clip a (the (R, 1) column; also
+// each layer's whole rows of a stacked LM leaf in the (R, 1024) layout),
+// the bias b = bias(a, f) and the step of each exponent field are the
+// row's, yet pack_code and decode_code recompute log2f(a) and an exp2f at
+// every element. B4's row scale table holds s[k] = 2^((max(k, 1) - b) - m)
+// for every exponent field k = 0 .. 2^e - 1 (16 for E4M3, 32 for E5M2):
+// decode_code's exp2f at field k (field 0 read as p = 1), the same
+// expression of the same operands, so the same bits. A warp writes it, one
+// entry a lane, and rebuilds it only where a row's alpha differs bitwise
+// from the one it was built for. B3 takes p and s from a threshold table
+// (wire_table_build, below), whose steps are the same expression.
+
+constexpr int kWireFields = 256;   // exponent fields of a code of at most 8 bits
+
+__device__ __forceinline__ void wire_row_scales(float* s, float b, const Fmt& f) {
+  for (int k = (int)(threadIdx.x & 31u); k < (1 << f.exp); k += 32)
+    s[k] = exp2f(((float)max(k, 1) - b) - (float)f.mant);
+}
+
+// [sign|exp|mant] of v_signed = round(xc / s) at exponent p: pack_code's
+// assembly, bin-edge overflow and saturation included
+__device__ __forceinline__ int wire_code(float v_signed, float p, const Fmt& f) {
+  const int top = 1 << (f.mant + 1);
+  const float p_max = (float)((1 << f.exp) - 1);
+  const int sign = v_signed < 0.0f ? 1 : 0;
+  int v = (int)fabsf(v_signed);
+  if (v >= top) {
+    if (p >= p_max) {
+      v = top - 1;
+    } else {
+      v = v / 2;
+      p += 1.0f;
+    }
+  }
+  const bool normal = v >= (1 << f.mant);
+  const int field = normal ? (int)p : 0;
+  const int m_field = normal ? v - (1 << f.mant) : v;
+  return (sign << (f.exp + f.mant)) | (field << f.mant) | m_field;
+}
+
+// decode_code with the row's scale table s: the same value
+__device__ __forceinline__ float decode_code_row(int code, const float* s, const Fmt& f) {
+  const int sign = (code >> (f.exp + f.mant)) & 0x1;
+  const int field = (code >> f.mant) & ((1 << f.exp) - 1);
+  const int m_field = code & ((1 << f.mant) - 1);
+  const int v = field >= 1 ? m_field + (1 << f.mant) : m_field;
+  const float mag = (float)v * s[field];
+  return sign == 1 ? -mag : mag;
+}
+
+constexpr unsigned kWarpAll = 0xFFFFFFFFu;
+
+// B3's per-warp threshold table: the encode's p and s by compares, where
+// B1/B2's table gives det_code's s (the same thresholds, so the same
+// premise: log2f non-decreasing). The warp's lanes find T_2 .. T_P, one
+// each, by threshold()'s bisection, then fill the binades as
+// scale_table_build does (fill_binade), whose .w, p below the binade's
+// threshold (p at or above it is one more), gives the code's exponent from
+// the same compare. Every s is scale(p, b, f) itself, and the table is used
+// only where P, p at |xc| = a, is at most p_max = 2^e - 1, so pack_code's
+// saturation never binds: p, s and the code are pack_code's to the bit.
+// Returns whether the table holds the clip (else the caller takes
+// pack_code); every lane of the warp calls it, and it ends with __syncwarp.
+__device__ __forceinline__ bool wire_table_build(ScaleTable& t, float a, float b,
+                                                 const Fmt& f) {
+  const int lane = (int)(threadIdx.x & 31u);
+  const int n_thr = table_n_thr(log2f(a), b);
+  bool ok = n_thr <= kThrMax && n_thr + 1 <= (1 << f.exp) - 1;
+  if (ok && lane < n_thr) t.t[lane] = threshold((float)(lane + 2), b);
+  __syncwarp();
+  int base, n;
+  table_span(a, t.t, ok ? n_thr : 0, &base, &n);
+  ok = ok && base >= 0 && n <= kTabMax;
+  bool two = false;                                          // two thresholds in a binade
+  for (int i = lane; ok && i < n; i += 32) two |= fill_binade(t, i, base, n_thr, b, f);
+  if (lane == 0) {
+    t.base = base;
+    t.n = n;
+  }
+  ok = __all_sync(kWarpAll, ok && !two);
+  __syncwarp();
+  return ok;
+}
+
+// pack_code through the warp's threshold table (binades e, first binade
+// base, n of them): the same p, s, y and code
+__device__ __forceinline__ int pack_code_tab(float x, float a, const float4* e, int base, int n,
+                                             const Fmt& f, bool stochastic, uint32_t idx,
+                                             uint32_t k0, uint32_t k1) {
+  const float xc = clip(x, a);
+  const uint32_t m = __float_as_uint(xc) & 0x7FFFFFFFu;    // |xc|'s bits
+  const float4 r = table_row(e, base, n, m);
+  const bool up = __uint_as_float(m) >= r.x;
+  const float y = xc / (up ? r.z : r.y);
+  return wire_code(stochastic ? round_rand(y, counter_bits(idx, k0, k1)) : rintf(y),
+                   up ? r.w + 1.0f : r.w, f);
+}
+
+// The wire pair's unit of work: kWireG = 16 elements a lane of one warp,
+// half a row. Element j of a lane's share of unit u: vector k = j / 4 of
+// the lane is the lane's 16 bytes of the unit's k-th warp-wide run of 128
+// elements, so that every load and store instruction of the warp covers
+// one contiguous span (a lane's 16 consecutive elements put each store 64
+// bytes from the next lane's and ran B4 slower than the first port;
+// PERF.md section 6, the wire pair). Every operand is 16-byte aligned.
+constexpr int kWireG = 16;
+constexpr int kWireUnit = 32 * kWireG;
+
+__device__ __forceinline__ long long wire_elem(long long u, int lane, int j) {
+  return u * kWireUnit + 4 * (32 * (j / 4) + lane) + j % 4;
+}
+
+// A lane's 16 f32 of unit u, as four float4
+__device__ __forceinline__ void wire_load(const float* __restrict__ p, long long u, int lane,
+                                          float (&v)[kWireG]) {
+#pragma unroll
+  for (int i = 0; i < kWireG / 4; ++i) {
+    const float4 t = *reinterpret_cast<const float4*>(p + wire_elem(u, lane, 4 * i));
+    v[4 * i] = t.x;
+    v[4 * i + 1] = t.y;
+    v[4 * i + 2] = t.z;
+    v[4 * i + 3] = t.w;
+  }
+}
+
+// Unit u's alpha: its row's one float of the (R, 1) column (COL), or the
+// lane's 16 of the (R, 1024) layout
+template <bool COL>
+__device__ __forceinline__ void wire_load_alpha(const float* __restrict__ a2, long long u,
+                                                int lane, float (&a)[COL ? 1 : kWireG]) {
+  if constexpr (COL) {
+    a[0] = a2[u * kWireUnit / kLane];
+  } else {
+    wire_load(a2, u, lane, a);
+  }
+}
+
+// Whether the whole unit shares one alpha, returned in *a0: always on the
+// column; on the (R, 1024) layout when all 512 equal lane 0's first,
+// bitwise. Every lane of the warp calls it.
+template <bool COL>
+__device__ __forceinline__ bool wire_unit_alpha(const float (&a)[COL ? 1 : kWireG], float* a0) {
+  if constexpr (COL) {
+    *a0 = a[0];
+    return true;
+  } else {
+    *a0 = __shfl_sync(kWarpAll, a[0], 0);
+    bool same = true;
+#pragma unroll
+    for (int j = 0; j < kWireG; ++j) same &= __float_as_uint(a[j]) == __float_as_uint(*a0);
+    return __all_sync(kWarpAll, same);
+  }
+}
+
+// Whether a wire launch of n elements takes the 16-element kernel: every
+// operand on a 16-byte boundary (``aligned``) and at least a unit for each
+// of the ``resident`` warps the card holds of it at once. Any other launch
+// (the small models' planes, a view off a 16-byte boundary) takes the first
+// port's kernel, one element a thread: there a warp's table build and its
+// run's bounds would only lengthen each thread's chain (PERF.md section 6).
+inline bool wire_vector(long long n, bool aligned, long long resident) {
+  return aligned && n / kWireUnit >= resident;
+}
+
+// A warp's run of units [*u0, *u1) of ``units``, the warps ``nw`` of them
+// (warp-uniform): a unit a warp where there are as many warps, else runs
+// that differ by at most one unit
+__device__ __forceinline__ void wire_run(long long w, long long nw, long long units,
+                                         long long* u0, long long* u1) {
+  if (nw >= units) {
+    *u0 = w;
+    *u1 = w < units ? w + 1 : w;
+  } else {
+    *u0 = w * units / nw;
+    *u1 = (w + 1) * units / nw;
+  }
 }
 
 // 16-byte vectors of f32 (4) or bf16 (8) elements, widened to f32 and

@@ -327,18 +327,27 @@ def quant_det_tiles_bwd(x2: torch.Tensor, a_col: torch.Tensor, g2: torch.Tensor,
 
 
 def _pack_codes(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,
-                fmt: FP8Format) -> torch.Tensor:
+                fmt: FP8Format, row0: int = 0) -> torch.Tensor:
     """Twin of ``_pack_code`` over the tile layout: int32 ``[sign|exp|mant]``
-    codes, stochastic from the counter RNG when ``key2`` is given."""
+    codes, stochastic from the counter RNG when ``key2`` is given (the
+    tiles' first row being absolute row ``row0``)."""
     a = a2.to(torch.float32)
     b = _bias(a, fmt)
     xc = _clip(x2, a)
     p, s = _scale_p(xc, b, fmt, saturate=True)
-    y = xc / s
+    return _round_code(xc / s, p, key2, fmt, row0)
+
+
+def _round_code(y: torch.Tensor, p: torch.Tensor, key2: torch.Tensor | None,
+                fmt: FP8Format, row0: int = 0) -> torch.Tensor:
+    """``_pack_code``'s tail: ``y = xc / s`` of the ``(R, LANE)`` tiles at
+    exponent ``p``, rounded (to nearest even, or from the counter bits of
+    ``key2`` with the tiles' first row at absolute row ``row0``), to int32
+    ``[sign|exp|mant]`` codes."""
     if key2 is None:
         v_signed = torch.round(y)
     else:
-        v_signed = _round_rand(y, tile_counter_bits(tuple(x2.shape), key2))
+        v_signed = _round_rand(y, tile_counter_bits(tuple(y.shape), key2, row0))
     sign = (v_signed < 0).to(torch.int32)
     v = torch.abs(v_signed).to(torch.int32)
     top = 2 ** (fmt.mant + 1)
@@ -355,14 +364,16 @@ def _pack_codes(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,
 
 def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
                      key2: torch.Tensor | None = None,
-                     fmt: FP8Format = E4M3) -> torch.Tensor:
+                     fmt: FP8Format = E4M3, row0: int = 0) -> torch.Tensor:
     """Twin of ``_quant_pack_det_kernel`` / ``_quant_pack_rand_ctr_kernel``
     with ``_pack_code``: ``(R, LANE)`` f32 -> ``(R, LANE)`` u8 codes.
 
     ``a2`` is ``(R, 1)`` or ``(R, LANE)`` (already floored by the caller);
-    ``key2`` a ``(2,)`` u32 tensor for stochastic rounding, None for det.
+    ``key2`` a ``(2,)`` u32 tensor for stochastic rounding, None for det;
+    ``row0`` the absolute row of the tiles' first (a slice of a plane draws
+    its counter bits at the plane's element indices).
     """
-    return _pack_codes(x2, a2, key2, fmt).to(torch.uint8)
+    return _pack_codes(x2, a2, key2, fmt, row0).to(torch.uint8)
 
 
 def _decode_codes(code: torch.Tensor, a2: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
@@ -384,6 +395,73 @@ def unpack_tiles(c2: torch.Tensor, a2: torch.Tensor,
                  fmt: FP8Format = E4M3) -> torch.Tensor:
     """Twin of ``_unpack_kernel``: ``(R, LANE)`` u8 codes -> f32 grid values."""
     return _decode_codes(c2.to(torch.int32), a2, fmt)
+
+
+# ---------------------------------------------------------------------------
+# the FP8 wire pair's per-row route (csrc/quant_pack.cu, csrc/unpack.cu)
+# ---------------------------------------------------------------------------
+
+
+def _exp2_vectors(t: torch.Tensor) -> torch.Tensor:
+    """``torch.exp2(t)`` over whole 32-element vectors: this CPU's exp2
+    rounds a tensor's ragged tail (its scalar path) unlike its vectorized
+    body, where the (R, 1024) twins take all of theirs."""
+    flat = t.reshape(-1)
+    pad = flat.new_zeros((-flat.numel()) % 32)
+    return torch.exp2(torch.cat([flat, pad]))[:flat.numel()].reshape(t.shape)
+
+
+def wire_row_scales(a_col: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``csrc/fp8_common.cuh::wire_row_scales`` for each row's clip
+    of an ``(R, 1)`` column (floored by the caller): ``(R, 2^e)`` f32 with
+    ``s[k] = 2^((max(k, 1) - b) - m)``, the step of exponent field k: the
+    encode's ``s`` at ``p = k``, the decode's at field k (0 read as 1)."""
+    b = _bias(a_col.to(torch.float32), fmt)
+    k = torch.arange(2 ** fmt.exp, dtype=torch.float32, device=a_col.device).clamp(min=1.0)
+    return _exp2_vectors(k - b - fmt.mant)
+
+
+def wire_table_ok(alpha: torch.Tensor, fmt: FP8Format = E4M3) -> bool:
+    """Whether ``csrc/fp8_common.cuh::wire_table_build`` holds the clip: B1/B2's
+    table holds it (``scale_table``'s ok) and P, p at |xc| = alpha, is at
+    most the format's largest exponent code."""
+    return scale_table(alpha, fmt)[3] and \
+        scale_thresholds(alpha, fmt).numel() + 1 <= fmt.max_exp_code
+
+
+def quant_pack_rows(x2: torch.Tensor, a_col: torch.Tensor,
+                    key2: torch.Tensor | None = None, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """The encode's per-row route (``csrc/quant_pack.cu``): ``(R, LANE)`` f32
+    at an ``(R, 1)`` clip column -> u8 codes. A row whose clip the threshold
+    table holds (``wire_table_ok``) takes p from it (``table_p``, as
+    ``pack_code_tab``), any other row ``floor(log2|xc| + b)`` (as
+    ``pack_code``); each step the row's ``wire_row_scales`` entry at p (the
+    table's s is the same expression). Equal to :func:`quant_pack_tiles`."""
+    a = a_col.to(torch.float32)
+    b = _bias(a, fmt)
+    xc = _clip(x2, a)
+    p = torch.floor(torch.log2(torch.abs(xc)) + b)
+    p = torch.where(p > 1.0, p, 1.0).clamp(max=float(fmt.max_exp_code))
+    for alpha in torch.unique(a):
+        if wire_table_ok(alpha, fmt):
+            rows = a[:, 0] == alpha
+            p[rows] = table_p(xc[rows], scale_table(alpha, fmt))
+    s = torch.gather(wire_row_scales(a, fmt), 1, p.to(torch.int64))
+    return _round_code(xc / s, p, key2, fmt).to(torch.uint8)
+
+
+def unpack_rows(c2: torch.Tensor, a_col: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
+    """The decode's per-row route (``csrc/fp8_common.cuh::decode_code_row``):
+    ``(R, LANE)`` u8 codes at an ``(R, 1)`` clip column -> f32, each step
+    taken from its row's ``wire_row_scales`` at the code's exponent field.
+    Equal to :func:`unpack_tiles`."""
+    code = c2.to(torch.int64)
+    sign = (code >> (fmt.exp + fmt.mant)) & 0x1
+    f = (code >> fmt.mant) & (2 ** fmt.exp - 1)
+    m_field = code & (2 ** fmt.mant - 1)
+    v = torch.where(f >= 1, m_field + 2 ** fmt.mant, m_field).to(torch.float32)
+    mag = v * torch.gather(wire_row_scales(a_col, fmt), 1, f)
+    return torch.where(sign == 1, -mag, mag)
 
 
 # ---------------------------------------------------------------------------

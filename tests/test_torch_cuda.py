@@ -16,7 +16,9 @@ the twin's own worst or 2^-20 (``ref.within_bar``), nonzero only where the
 masked f64 product is (``ref.stray_nonzeros``), and two
 calls bitwise equal.
 """
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +26,9 @@ import torch
 
 from repro_torch.core.fp8 import E4M3, E5M2, FP4_E2M1, FP4_E3M0
 from repro_torch.kernels import dispatch, fp8_quant, ref
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import qat_probe  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -133,6 +138,84 @@ def test_pack_unpack_bitwise_against_twins(dev, shape, alpha_layout, stochastic)
     codes = fp8_quant.quant_pack_tiles(x, a2, k)
     assert torch.equal(codes, ref.quant_pack_tiles(x, a2, k))
     assert torch.equal(fp8_quant.unpack_tiles(codes, a2), ref.unpack_tiles(codes, a2))
+
+
+def _wire_against_twins(x, a2, key, fmt, chunk=None):
+    """B3's codes and B4's values on them against the twins bit for bit, in
+    row chunks of ``chunk``; a second call of each bitwise the first; one
+    launch a call (``qat_probe.wire_check``)."""
+    r = qat_probe.wire_check(fp8_quant, ref, x, a2, key, fmt, chunk)
+    assert r == {"bad_codes": 0, "bad_values": 0, "repeat_bitwise": True,
+                 "one_launch_each": True}, r
+
+
+def _wire_alphas(x, layout):
+    """The clips of a wire case: a row-max column, a column alternating
+    between two clips row by row, each expanded to (R, 1024) (constant along
+    a row, as the LM's stacked clips are), or (R, 1024) varying within rows."""
+    col = x.abs().amax(dim=1, keepdim=True) * 0.9
+    alt = torch.where(torch.arange(x.shape[0], device=x.device).reshape(-1, 1) % 2 == 0,
+                      torch.tensor(0.0731, device=x.device), torch.tensor(0.45, device=x.device))
+    if layout == "column":
+        return col
+    if layout == "alternating":
+        return alt
+    if layout == "full":
+        return col.expand(x.shape).contiguous()
+    if layout == "alternating full":
+        return alt.expand(x.shape).contiguous()
+    return col * (1.0 + torch.rand(x.shape, device=x.device))   # varying within rows
+
+
+WIRE_LAYOUTS = ["column", "alternating", "full", "alternating full", "varying"]
+
+
+@pytest.mark.parametrize("rows", [1, 3, 9, 135, 4097, 8191])
+@pytest.mark.parametrize("layout", WIRE_LAYOUTS)
+@pytest.mark.parametrize("fmt", [E4M3, E5M2])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_wire_pair_bitwise_at_odd_rows_and_every_alpha_layout(dev, rows, layout, fmt,
+                                                              stochastic):
+    x = _randn((rows, 1024), 40 + rows, 0.2, dev)
+    x[0, :4] = torch.tensor([0.0, -0.0, 1e-40, -3e-45])
+    _wire_against_twins(x, _wire_alphas(x, layout), _key(dev) if stochastic else None, fmt)
+
+
+@pytest.mark.parametrize("rows", [(1 << 14) + 3, (1 << 20) + 5])
+def test_wire_pair_past_2_24_and_2_30_elements(dev, rows):
+    """Element indices (the counter bits' input) beyond 2^24 and 2^30."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn((rows, 1024), generator=g, device=dev) * 0.02
+    for layout in ("alternating", "alternating full"):
+        a2 = _wire_alphas(x, layout)
+        for key in (None, _key(dev)):
+            _wire_against_twins(x, a2, key, E4M3, chunk=1 << 15)
+        del a2
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 3, 0), (0, 4, 0), (0, 0, 2), (3, 7, 1),
+                                     (4, 16, 4)])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("rows", [135, 8191])
+def test_wire_pair_on_misaligned_views(dev, offsets, stochastic, rows):
+    """x, the codes and the (R, 1024) clips as views whose rows start off a
+    16-byte boundary (storage offsets in elements: f32, u8, f32), below one
+    wave and above it (where aligned operands take the 16-element kernels)."""
+    ox, oc, oa = offsets
+    n = rows * 1024
+    x = _randn((n + 16,), 42, 0.2, dev)[ox:ox + n].view(rows, 1024)
+    key = _key(dev) if stochastic else None
+    for layout in ("column", "full", "varying"):
+        a = _wire_alphas(x, layout)
+        if a.shape[1] != 1:
+            a = torch.cat([torch.ones(oa, device=dev), a.reshape(-1)])[oa:].view(rows, 1024)
+        _wire_against_twins(x, a, key, E4M3)
+        codes = fp8_quant.quant_pack_tiles(x, a, key)
+        c = torch.zeros(n + 16, dtype=torch.uint8, device=dev)[oc:oc + n].view(rows, 1024)
+        c.copy_(codes)
+        assert torch.equal(fp8_quant.unpack_tiles(c, a).view(torch.int32),
+                           ref.unpack_tiles(c, a).view(torch.int32))
 
 
 def _bits(shape, seed, dev):
