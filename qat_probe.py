@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""What bounds the QAT kernels B1/B2, the stochastic pair B6 and the FP8 wire
-pair B3/B4 on the card.
+"""What bounds the QAT kernels B1/B2, the stochastic pair B6, the FP8 wire
+pair B3/B4, and B8's and B5's batched launches on the card.
 
-Run from the repository root:  python3 qat_probe.py [--src DIR] [--b6 | --wire]
+Run from the repository root:  python3 qat_probe.py [--src DIR] [--b6 | --wire | --sub-fq]
 
 At the one-device trainer's bf16 activation shapes (batch 8 x 128 tokens:
 (8, 128, 2048), (8, 128, 5632), and a CE chunk's (8, 16, 2048)), at f32
@@ -58,6 +58,22 @@ column and as (R, 1024): each kernel's device time and stream time a call
 beside its bytes bound, and its output against its twin bit for bit
 (at the LM plane in row chunks), two calls bitwise equal, one launch a
 call.
+
+With ``--sub-fq``, only B8's FP4 encode and B5's fake-quant as the port's
+main paths call them (:func:`sub_fq_cases`): B8 at (P, R, 1024) for R = 9
+and 135 with cohorts of P = 1 and 3 planes, and at (1, 8191, 1024), E2M1
+and E3M0, det and rand, alpha as an (R, 1) column and as (R, 1024); B5 at
+E4M3, det and rand, on cifar10-lenet's, cifar100-mlp's and speech-kwt's
+UQ+ planes (their init weights) at G = 1 and 20 clip columns (0.5x to 1x
+each segment's clip, as Eq. 5's grid spans its interval) and at (8191,
+1024). A call is one batched launch (``quant_pack_sub_many``,
+``fake_quant_many``), or where the package has none (``--src`` of an older checkout) the P (G)
+single-plane launches its callers made. Each case prints device us a call
+(profiler), host ms a call (CUDA events around back-to-back calls), the
+wrapper launches a call and the bytes bound of the batched work (x read
+once, codes or values written once, alphas and keys), and counts the codes
+or values that differ from this checkout's twins. Then the UQ+ server step
+on LeNet's plane, host ms (:func:`server_step_ms`).
 
 ``--b6`` runs only the B6 part. With ``--src DIR`` it times the kernels of
 the package under ``DIR/src`` instead (for example an unpacked parent
@@ -676,6 +692,147 @@ def measure_wire(dev, K, R, verbose: bool = True) -> dict:
     return res
 
 
+SUB_ROWS = ((9, (1, 3)), (135, (1, 3)), (8191, (1,)))   # B8: rows, cohorts P
+FQ_TASKS = ("cifar10-lenet", "cifar100-mlp", "speech-kwt")  # B5: the UQ+ planes
+FQ_GRID = (1, 20)        # B5: grid points a call (the paper's method grid: 20)
+
+
+def key_rows(n: int, dev, seed: int):
+    """``(n, 2)`` u32 key words from ``seed``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 2 ** 32, (n, 2), generator=g, dtype=torch.int64).to(
+        torch.int32).view(torch.uint32).to(dev)
+
+
+def _timed(fn, launches) -> dict:
+    """Device time (profiler) and host wall time of back-to-back calls (CUDA
+    events), a call, and the wrapper launches a call makes."""
+    before = sum(launches.values())
+    fn()
+    made = sum(launches.values()) - before
+    return {"device_us": device_us(fn), "call_ms": time_ms(fn), "launches": made}
+
+
+def server_step_ms(dev) -> float:
+    """Host-clock ms of one UQ+ server step (``server_optimize`` at the
+    method grid's 5 GD steps and 20 grid points) on LeNet's plane with three
+    client messages made from its init weights, synchronized; the median of
+    5 calls after one (``chip_smoke.time_server_step``'s measure)."""
+    import torch
+
+    from repro_torch.bench import common
+    from repro_torch.core.server_opt import server_optimize
+    from repro_torch.tree import tree_map
+
+    params, _ = common.make_model(common.TASKS["cifar10-lenet"], 0, dev)
+    stacked = tree_map(lambda p: torch.stack([p, p * 1.01, p * 0.99]), params)
+    nk = torch.tensor([1.0, 2.0, 3.0], device=dev)
+    cfg = common.method_cfg("uq+", 10, 0.3, 10, 32).server_opt
+    gd_keys, grid_keys = key_rows(cfg.gd_steps, dev, 5), key_rows(cfg.n_grid, dev, 6)
+    samples = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server_optimize(stacked, nk, gd_keys, grid_keys, cfg)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples[1:]) * 1e3
+
+
+def sub_fq_cases(dev, K, R, verbose: bool = True) -> dict:
+    """B8's cohort encode and B5's clip search as the port's main paths call
+    them (module docstring, ``--sub-fq``). Where ``K`` has the batched entries
+    (``quant_pack_sub_many``, ``fake_quant_many``) a call is one of them;
+    else it is the P (G) single-plane launches the parent's callers made.
+    Each call's output is held against this checkout's twins, bitwise."""
+    import torch
+
+    from repro_torch.bench import common
+    from repro_torch.core import plane
+    from repro_torch.core.fp8 import E4M3, FP4_E2M1, FP4_E3M0
+
+    batched = hasattr(K, "quant_pack_sub_many")
+    g = torch.Generator().manual_seed(25)
+    res = {"batched": batched, "b8": {}, "b5": {}}
+    for rows, cohorts in SUB_ROWS:
+        for P in cohorts:
+            x3 = (torch.randn((P, rows, 1024), generator=g) * 0.2).to(dev)
+            col3 = x3.abs().amax(dim=2, keepdim=True) * 0.9
+            for layout, a3 in (("column", col3), ("full", col3.expand(x3.shape).contiguous())):
+                for rnd, keys in (("det", None), ("rand", key_rows(P, dev, rows + P))):
+                    for fmt in (FP4_E2M1, FP4_E3M0):
+                        if batched:
+                            def call(x3=x3, a3=a3, keys=keys, fmt=fmt):
+                                return K.quant_pack_sub_many(x3, a3, keys, fmt)
+                        else:
+                            def call(x3=x3, a3=a3, keys=keys, fmt=fmt):
+                                return torch.stack([K.quant_pack_sub_tiles(
+                                    x3[p], a3[p], None if keys is None else keys[p], fmt)
+                                    for p in range(x3.shape[0])])
+                        codes = call()
+                        bad = sum(_differ(codes[p], R.quant_pack_sub_tiles(
+                            x3[p], a3[p], None if keys is None else keys[p], fmt))
+                            for p in range(P))
+                        n = x3.numel()
+                        n_bytes = 4.5 * n + 4 * (a3.numel()) + (8 * P if keys is not None else 0)
+                        case = f"({P}, {rows}, 1024) {layout} {rnd} E{fmt.exp}M{fmt.mant}"
+                        r = {**_timed(call, K.LAUNCHES), "bound_us": n_bytes / HBM_BYTES_PER_S
+                             * 1e6, "bad_codes": bad}
+                        res["b8"][case] = r
+                        if verbose:
+                            print(f"[sub-fq] B8 {case}: device {r['device_us']:.3f} us, host "
+                                  f"{r['call_ms'] * 1e3:.2f} us a call, {r['launches']} "
+                                  f"launches, bound {r['bound_us']:.3f} us, {bad} codes differ")
+    fq_planes = []
+    for task_name in FQ_TASKS:
+        params, _ = common.make_model(common.TASKS[task_name], 0, dev)
+        spec = plane.make_plane_spec(params)
+        w2, alphas = plane.pack_tiles(params, spec)
+        fq_planes.append((task_name, w2, alphas, spec))
+    x = (torch.randn((8191, 1024), generator=g) * 0.2).to(dev)
+    fq_planes.append(("random", x, x.abs().amax(dim=1) * 0.9, None))
+    for label, w2, alphas, spec in fq_planes:
+        for G in (FQ_GRID if spec is not None else (1,)):
+            # G clip columns between 0.5x and 1x the plane's own, as Eq. 5's grid
+            ts = torch.linspace(0.5, 1.0, G, device=dev)[:, None]
+            a_seg = ts * alphas[None, :]
+            a3 = torch.stack([a if spec is None else plane.alpha_column(a, spec)
+                              for a in a_seg]).reshape(G, -1, 1)
+            for rnd, keys in (("det", None), ("rand", key_rows(G, dev, 7 + G))):
+                if batched:
+                    def call(w2=w2, a3=a3, keys=keys):
+                        return K.fake_quant_many(w2, a3, keys)
+                else:
+                    def call(w2=w2, a3=a3, keys=keys):
+                        return torch.stack([K.fake_quant_tiles(
+                            w2, a3[i], None if keys is None else keys[i])
+                            for i in range(a3.shape[0])])
+                q = call()
+                bad = sum(_differ(q[i], R.fake_quant_tiles(
+                    w2, a3[i], None if keys is None else keys[i], E4M3)) for i in range(G))
+                n = w2.numel()
+                n_bytes = 4 * n + 4 * G * n + 4 * a3.numel() + (8 * G if keys is not None else 0)
+                case = f"{label} ({G}, {w2.shape[0]}, 1024) {rnd} E4M3"
+                r = {**_timed(call, K.LAUNCHES), "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6,
+                     "bad_values": bad}
+                res["b5"][case] = r
+                if verbose:
+                    print(f"[sub-fq] B5 {case}: device {r['device_us']:.3f} us, host "
+                          f"{r['call_ms'] * 1e3:.2f} us a call, {r['launches']} launches, "
+                          f"bound {r['bound_us']:.3f} us, {bad} values differ")
+    res["uqp_server_step_ms"] = server_step_ms(dev)
+    if verbose:
+        print(f"[sub-fq] UQ+ server step on LeNet's plane (P = 3, 5 GD steps, 20 grid "
+              f"points): {res['uqp_server_step_ms']:.2f} ms (host clock, median of 5)")
+    res["all_bitwise"] = (all(r["bad_codes"] == 0 for r in res["b8"].values())
+                          and all(r["bad_values"] == 0 for r in res["b5"].values()))
+    res["profiler_fallbacks"] = len(FALLBACKS)
+    if verbose:
+        print(f"[sub-fq] every call bitwise this checkout's twins: {res['all_bitwise']}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -700,6 +857,8 @@ def main() -> int:
     dev = torch.device("cuda")
     if "--wire" in sys.argv[1:]:
         res = {"wire": measure_wire(dev, K, R)}
+    elif "--sub-fq" in sys.argv[1:]:
+        res = {"sub_fq": sub_fq_cases(dev, K, R)}
     else:
         res = {} if "--b6" in sys.argv[1:] else measure(dev, K)
         res["b6"] = measure_b6(dev)

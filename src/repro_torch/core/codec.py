@@ -83,6 +83,13 @@ class WireCodec:
                ref: dict | None = None) -> dict:
         raise NotImplementedError
 
+    def encode_many(self, params_list, spec: wire.WireSpec, keys: torch.Tensor,
+                    ref: dict | None = None) -> list[dict]:
+        """:meth:`encode` of a cohort's models, ``keys`` their ``(P, 2)``
+        words: one payload a client, each its :meth:`encode`'s. Here one
+        encode a client; the FP4 codecs encode the cohort in one launch."""
+        return [self.encode(p, spec, k, ref=ref) for p, k in zip(params_list, keys)]
+
     def payload_nbytes(self, spec: wire.WireSpec) -> int:
         raise NotImplementedError
 
@@ -226,6 +233,19 @@ class PackedFpCodec(Fp8Codec):
         t = f"fp{self.fmt.bits}_e{self.fmt.exp}m{self.fmt.mant}"
         return t if self.rounding == "rand" else t + "_det"
 
+    def encode_many(self, params_list, spec, keys, ref=None):
+        """The cohort's encodes in one ``quant_pack_sub_many`` launch (a
+        chunk of clients a launch, ``wire.encode_many``), bitwise
+        :meth:`encode` of each."""
+        if not spec.q_slots:
+            return super().encode_many(params_list, spec, keys, ref=ref)
+        leaves = [tree.leaves(p) for p in params_list]
+        others = [tuple(lv[i] for i in spec.other_slots) for lv in leaves]
+        codes = wire.encode_many(
+            ((wire.weight_tiles(lv, spec), wire.alpha_tiles(o, spec))
+             for lv, o in zip(leaves, others)), spec, self.key(keys), self.fmt)
+        return [{"codes": c, "other": o} for c, o in zip(codes, others)]
+
 
 @dataclasses.dataclass(frozen=True)
 class DeltaCodec(WireCodec):
@@ -260,14 +280,44 @@ class DeltaCodec(WireCodec):
         if ref is None:
             raise ValueError("DeltaCodec needs the leg's reference model (ref=), which "
                              "the receiver must already hold: use it on the uplink")
-        x2 = wire.weight_tiles(leaves, spec) - wire.weight_tiles(tree.leaves(ref), spec)
-        # per-row max in plain torch (the reference's plain jnp), then per leaf
-        d_alpha = torch.clamp(wire.segment_amax(torch.amax(torch.abs(x2), dim=1), spec),
-                              min=fp8._ALPHA_FLOOR)
+        x2, d_alpha = self._residual(leaves, wire.weight_tiles(tree.leaves(ref), spec), spec)
         codes = wire.pack(x2, wire.alpha_column(d_alpha, spec), self.inner.key(key2),
                           spec, self.inner.fmt)
         # the residual clip values ride as ONE extra (n_q,) FP32 rider
         return {"codes": codes, "other": other + (d_alpha,)}
+
+    @staticmethod
+    def _residual(leaves, ref2, spec):
+        """The residual tiles against the reference's tiles ``ref2``, and
+        each leaf's clip: its max|residual|, floored."""
+        x2 = wire.weight_tiles(leaves, spec) - ref2
+        # per-row max in plain torch (the reference's plain jnp), then per leaf
+        d_alpha = torch.clamp(wire.segment_amax(torch.amax(torch.abs(x2), dim=1), spec),
+                              min=fp8._ALPHA_FLOOR)
+        return x2, d_alpha
+
+    def encode_many(self, params_list, spec, keys, ref=None):
+        """Over an FP4 inner, the cohort's residuals in one
+        ``quant_pack_sub_many`` launch (a chunk of clients a launch), each
+        client's clips stacked into the launch's alphas; bitwise
+        :meth:`encode` of each. Over an FP8 inner, one encode a client."""
+        if not (spec.q_slots and isinstance(self.inner, PackedFpCodec)):
+            return super().encode_many(params_list, spec, keys, ref=ref)
+        if ref is None:
+            raise ValueError("DeltaCodec needs the leg's reference model (ref=), which "
+                             "the receiver must already hold: use it on the uplink")
+        ref2 = wire.weight_tiles(tree.leaves(ref), spec)
+        riders = []
+
+        def tiles():
+            for p in params_list:
+                leaves = tree.leaves(p)
+                x2, d_alpha = self._residual(leaves, ref2, spec)
+                riders.append(tuple(leaves[i] for i in spec.other_slots) + (d_alpha,))
+                yield x2, wire.alpha_column(d_alpha, spec)
+
+        codes = wire.encode_many(tiles(), spec, self.inner.key(keys), self.inner.fmt)
+        return [{"codes": c, "other": o} for c, o in zip(codes, riders)]
 
     def decode(self, payload, spec, ref=None):
         if ref is None:

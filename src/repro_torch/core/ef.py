@@ -107,27 +107,22 @@ class ErrorFeedbackCodec(WireCodec):
         ``(P, 2)`` u32 encode keys, ``e_sel`` the cohort's ``(P, spec.total)``
         residual rows. Returns ``(msgs, new_e, payloads)``: the decoded
         messages the server aggregates, the updated rows, and the inner
-        payloads (read for a dynamic inner's traced bytes). A
-        :class:`RansCodec` inner grid-codes each compensated client, then
-        range-codes the cohort in one launch each way
-        (:meth:`RansCodec.cohort_transit`), bitwise the same."""
-        if isinstance(self.inner, RansCodec):
-            flat, inner = [], []
-            for p, k, e in zip(client_params, keys, e_sel):
-                comp = add_resid(p, e, spec)
-                flat.append(flatten_q(comp, spec))
-                inner.append(self.inner.inner.encode(comp, spec, k))
+        payloads (read for a dynamic inner's traced bytes). Each client is
+        compensated, then the cohort grid-coded through the grid codec's
+        :meth:`~repro_torch.core.codec.WireCodec.encode_many` (an FP4 grid:
+        one launch); a :class:`RansCodec` inner then range-codes the cohort
+        in one launch each way (:meth:`RansCodec.cohort_transit`). Bitwise a
+        client at a time."""
+        rans = isinstance(self.inner, RansCodec)
+        comps = [add_resid(p, e, spec) for p, e in zip(client_params, e_sel)]
+        flat = [flatten_q(comp, spec) for comp in comps]
+        inner = (self.inner.inner if rans else self.inner).encode_many(comps, spec, keys)
+        del comps
+        if rans:
             msgs, payloads = self.inner.cohort_transit(inner, spec)
-            new_e = [f - flatten_q(m, spec) for f, m in zip(flat, msgs)]
-            return msgs, torch.stack(new_e), payloads
-        msgs, new_e, payloads = [], [], []
-        for p, k, e in zip(client_params, keys, e_sel):
-            comp = add_resid(p, e, spec)
-            payload = self.inner.encode(comp, spec, k)
-            dec = self.inner.decode(payload, spec)
-            msgs.append(dec)
-            new_e.append(flatten_q(comp, spec) - flatten_q(dec, spec))
-            payloads.append(payload)
+        else:
+            msgs, payloads = [self.inner.decode(pl, spec) for pl in inner], inner
+        new_e = [f - flatten_q(m, spec) for f, m in zip(flat, msgs)]
         return msgs, torch.stack(new_e), payloads
 
     def encode(self, params, spec, key2, ref=None):

@@ -45,7 +45,7 @@ import torch
 
 from . import codec as codec_lib
 from . import ef as ef_lib
-from . import metrics, wire
+from . import metrics, plane, wire
 from . import scaling as scaling_lib
 from .codec import DeltaCodec, Fp8Codec, WireCodec
 from .entropy import RansCodec
@@ -281,15 +281,22 @@ def _codec_transit(codec: WireCodec, params: dict, spec: wire.WireSpec,
             codec.payload_nbytes_traced(payload, spec))
 
 
-def _drain(client_params: list[dict]):
-    """Hand out the cohort's trained models front to back, removing each from
-    the list. Every uplink of :class:`WireLink` consumes its
-    ``client_params`` this way: the list is empty when it returns, and on the
-    per-client uplinks each model is freed once its payload is decoded, so at
-    most one model copy more than the messages is alive (4.4 GB a copy at
-    TinyLlama's full width)."""
+def _drain(client_params: list[dict], step: int | None = None):
+    """Hand out the cohort's trained models front to back, ``step`` at a time
+    as lists (one at a time, unlisted, when None), removing them from the
+    list. Every uplink of :class:`WireLink` consumes its ``client_params``
+    this way: the list is empty when it returns, and on the uplinks that
+    carry a chunk of clients at a time each chunk's models are freed once
+    their payloads are decoded, so at most a chunk of model copies more than
+    the messages is alive (4.4 GB a copy at TinyLlama's full width, where a
+    chunk is one client: ``plane.stack_chunk``)."""
     while client_params:
-        yield client_params.pop(0)
+        if step is None:
+            yield client_params.pop(0)
+        else:
+            chunk = client_params[:step]
+            del client_params[:step]
+            yield chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,21 +379,27 @@ class WireLink:
         """Cohort -> server, one independent payload per client: ``(msgs,
         per_client_nbytes)``; ``ref`` is the round's reference model (the
         decoded broadcast). Consumes ``client_params`` (see :func:`_drain`).
-        An entropy-coded uplink inner-encodes each client, then range-codes
-        the cohort's code streams in one launch each way
-        (:meth:`~repro_torch.core.entropy.RansCodec.cohort_transit`); every
-        other codec carries one client at a time."""
+        The cohort is encoded a chunk of clients at a time
+        (``plane.stack_chunk``: the whole cohort of a small model, one
+        client of an LM), an FP4 codec's chunk in one launch
+        (:meth:`~repro_torch.core.codec.WireCodec.encode_many`), then each
+        payload decoded. An entropy-coded uplink inner-encodes the cohort so,
+        then range-codes its code streams in one launch each way
+        (:meth:`~repro_torch.core.entropy.RansCodec.cohort_transit`)."""
         c = self.up_c
-        if isinstance(c, RansCodec) and c.quantized and spec.q_slots:
-            inner = [c.inner.encode(p, spec, k, ref=ref)
-                     for p, k in zip(_drain(client_params), keys)]
+        if not (c.quantized and spec.q_slots):
+            msgs = list(_drain(client_params))
+            return msgs, [codec_lib.leg_nbytes(c, spec)] * len(msgs)
+        if isinstance(c, RansCodec):
+            inner = c.inner.encode_many(list(_drain(client_params)), spec, keys, ref=ref)
             msgs, payloads = c.cohort_transit(inner, spec, ref=ref)
             return msgs, [c.payload_nbytes_traced(pl, spec) for pl in payloads]
         msgs, nbytes = [], []
-        for p, k in zip(_drain(client_params), keys):
-            m, n = _codec_transit(self.up_c, p, spec, k, ref=ref)
-            msgs.append(m)
-            nbytes.append(n)
+        for chunk in _drain(client_params, plane.stack_chunk(spec.n_rows)):
+            ks = keys[len(msgs):len(msgs) + len(chunk)]
+            for pl in c.encode_many(chunk, spec, ks, ref=ref):
+                msgs.append(c.decode(pl, spec, ref=ref))
+                nbytes.append(c.payload_nbytes_traced(pl, spec))
         return msgs, nbytes
 
     def up_ef(self, client_params: list[dict], spec: wire.WireSpec,

@@ -51,6 +51,17 @@ def tiles(pieces: list[torch.Tensor], fill, width: int = LANE) -> torch.Tensor:
     return out
 
 
+# bytes of stacked f32 tiles one batched launch takes (a cohort's wire
+# planes, or one plane's UQ+ grid points); more go in chunks of this
+STACK_TILE_BYTES = 256 << 20
+
+
+def stack_chunk(rows: int) -> int:
+    """``(rows, LANE)`` f32 planes a batched launch takes: as many as fit in
+    ``STACK_TILE_BYTES``, at least one."""
+    return max(1, STACK_TILE_BYTES // max(1, 4 * rows * LANE))
+
+
 def nelem(shape: tuple[int, ...]) -> int:
     n = 1
     for d in shape:

@@ -16,9 +16,11 @@ by alternating minimization:
 Inputs are *stacked* client messages: every leaf has a leading client axis
 ``(P, ...)``. The alternation runs on the tiled parameter plane
 (``core.plane``): each GD step is one ``fake_quant_tiles`` launch through the
-differentiable ``kernels.dispatch.fake_quant_plane``, each grid point one
-forward launch, and Eq. 5's argmin is taken per alpha segment through a
-segment sum (``index_add_``) of the per-row MSE.
+differentiable ``kernels.dispatch.fake_quant_plane``, the grid points one
+forward launch together (``fake_quant_many``: the plane at every point's clip
+column, in chunks of ``plane.stack_chunk`` points), and Eq. 5's argmin is
+taken per alpha segment through a segment sum (``index_add_``) of each
+point's per-row MSE.
 
 Stochastic rounding draws from the counter RNG. Where the reference derives
 the key words from a ``jax.random`` key (``_key_words``: a split into
@@ -135,17 +137,19 @@ def server_optimize(stacked: dict, nk: torch.Tensor, gd_keys: torch.Tensor,
             (g,) = torch.autograd.grad(torch.sum(nw_b * err * err), w)
         w2 = w2 - cfg.lr * g
 
-    # --- Eq. (5): per-segment grid search, one launch per grid point ------
+    # --- Eq. (5): per-segment grid search, one launch for the grid points -
     lo, hi = torch.min(ak, dim=0).values, torch.max(ak, dim=0).values
     ts = grid_points(cfg.n_grid, w2.device)
+    a_all = torch.clamp(_lerp(lo, ts[:, None], hi), min=fp8._ALPHA_FLOOR)   # (G, S)
     losses = []
-    for gi in range(cfg.n_grid):
-        a = torch.clamp(_lerp(lo, ts[gi], hi), min=fp8._ALPHA_FLOOR)
-        q2 = dispatch.fake_quant_tiles(w2, plane.alpha_column(a, spec, seg_ids),
-                                       grid_keys[gi], cfg.fmt)
-        err2 = torch.sum(nw_b * (q2[None] - t2) ** 2, dim=0)          # (R, LANE)
-        losses.append(torch.zeros(spec.n_seg, device=w2.device)
-                      .index_add_(0, seg_ids, torch.sum(err2, dim=1)))
+    step = plane.stack_chunk(spec.n_rows)
+    for g0 in range(0, cfg.n_grid, step):
+        q_all = dispatch.fake_quant_many(w2, a_all[g0:g0 + step][:, seg_ids, None],
+                                         grid_keys[g0:g0 + step], cfg.fmt)
+        for q2 in q_all:
+            err2 = torch.sum(nw_b * (q2[None] - t2) ** 2, dim=0)      # (R, LANE)
+            losses.append(torch.zeros(spec.n_seg, device=w2.device)
+                          .index_add_(0, seg_ids, torch.sum(err2, dim=1)))
     t_best = ts[torch.argmin(torch.stack(losses), dim=0)]             # (S,)
     return _reassemble(avg, spec, w2, _lerp(lo, t_best, hi))
 

@@ -25,10 +25,11 @@ scales for ``core.scaling``, the residual's clips for the delta codec.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
-from . import fp8, qat
+from . import fp8, plane, qat
 from .fp8 import E4M3, FP8Format
 from .plane import LANE, f32, nelem, tiles
 from .. import tree
@@ -161,6 +162,38 @@ def pack(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,
     codes = torch.cat([codes2[r0:r0 + rows].reshape(-1)[:n] for r0, rows, n
                        in zip(spec.q_row_offsets, spec.q_rows, code_sizes(spec, fmt))])
     return (codes, segment_amax(rowmax, spec)) if with_amax else codes
+
+
+def pack_many(x3: torch.Tensor, a3: torch.Tensor, keys: torch.Tensor | None,
+              spec: WireSpec, fmt: FP8Format) -> list[torch.Tensor]:
+    """A cohort's stacked ``(P, R, LANE)`` tiles -> each client's payload
+    codes, one sub-byte encode launch (``quant_pack_sub_many``; ``keys`` the
+    ``(P, 2)`` words, None deterministic); bitwise :func:`pack` of each."""
+    codes3 = dispatch.quant_pack_sub_many(x3, a3, keys, fmt=fmt)
+    sizes = code_sizes(spec, fmt)
+    return [torch.cat([c2[r0:r0 + rows].reshape(-1)[:n] for r0, rows, n
+                       in zip(spec.q_row_offsets, spec.q_rows, sizes)]) for c2 in codes3]
+
+
+def encode_many(tiles_alphas, spec: WireSpec, keys: torch.Tensor | None,
+                fmt: FP8Format) -> list[torch.Tensor]:
+    """Payload codes of a cohort's planes at a sub-byte ``fmt``:
+    ``tiles_alphas`` yields each client's ``(x2, a2)`` (its tiles and clip
+    tiles), ``keys`` the ``(P, 2)`` words (None: det). One
+    :func:`pack_many` launch a chunk of ``plane.stack_chunk`` clients, so at
+    most ``plane.STACK_TILE_BYTES`` of tiles are stacked at once; a chunked encode
+    is bitwise an unchunked one, and each client's codes are its
+    :func:`pack`'s."""
+    it, out = iter(tiles_alphas), []
+    step = plane.stack_chunk(spec.n_rows)
+    while chunk := list(itertools.islice(it, step)):
+        x3 = torch.stack([x2 for x2, _ in chunk])
+        a3 = torch.stack([a2 for _, a2 in chunk])
+        del chunk
+        ks = None if keys is None else keys[len(out):len(out) + x3.shape[0]]
+        out += pack_many(x3, a3, ks, spec, fmt)
+        del x3, a3
+    return out
 
 
 def assemble(codes: torch.Tensor, other: tuple, a2: torch.Tensor | None,

@@ -1,20 +1,22 @@
 // Fused quantize -> dequantize of the (R, 1024) tile layout, f32 out, no
-// codes: the FP8 transit of the UQ+ server optimizer (B5), and the same
-// with a fused per-row raw max (B9).
+// codes: the FP8 transit of the UQ+ server optimizer (B5), of one plane at G
+// clip columns in one launch, and the same with a fused per-row raw max (B9).
 //
-// fake_quant_kernel replaces the TPU kernel
+// fake_quant_many_kernel replaces the TPU kernel
 // src/repro/kernels/fp8_quant.py::fake_quant_tiles (_fake_quant_tiles_kernel
 // and _fake_quant_tiles_rand_kernel); fake_quant_amax_kernel replaces
 // fake_quant_amax_tiles (_fake_quant_amax_tiles_kernel and its _rand
 // variant), whose one caller, dispatch.fake_quant_amax_plane, the port
-// mirrors. Both compute each element with fake_quant_elem below, so B9's
-// values are B5's bit for bit. The UQ+
-// server step (core/server_opt.py) launches B5 once per gradient-descent
-// step (stochastic, through dispatch.fake_quant_plane) and once per grid
-// point of the clip search: 5 + 20 launches per round in the paper's
-// method grid. With a (2,) u32 key the rounding is stochastic from the
-// counter RNG over the global element index row * 1024 + col (the wire
-// encode's generator); with a null key it rounds to nearest even.
+// mirrors. Both compute each element with fake_quant_elem_b below, so B9's
+// values are B5's bit for bit. The UQ+ server step (core/server_opt.py)
+// launches B5 once per gradient-descent step (stochastic, G = 1, through
+// dispatch.fake_quant_plane) and once for all the grid points of the clip
+// search (G = n_grid: the same plane at G clip columns, each with its own
+// key): 5 + 1 launches per round in the paper's method grid. With a (G, 2)
+// u32 key array the rounding of slice g is stochastic from the counter RNG
+// keyed by row g over the element index row * 1024 + col of the plane (the
+// wire encode's generator), so slice g is bitwise a launch at clip g alone;
+// with a null key it rounds to nearest even.
 //
 // It equals unpack_tiles(quant_pack_tiles(...)) within 1 f32 ULP: both land
 // on the same grid point, the decoder writes it as v' * s' after bin-edge
@@ -23,26 +25,31 @@
 // round-up past the top mantissa (reachable only through float fuzz at the
 // clip boundary) saturates, exactly as the wire's _pack_code does.
 //
-// Bound: memory. Per element it reads 4 bytes of x (plus alpha: one float
-// per row for the (R, 1) column, or 4 bytes for the (R, 1024) layout) and
-// writes 4 bytes (B9: plus 4 bytes of row max a row); two transcendentals
-// and, when stochastic, the ~10 integer operations of the murmur3 mix.
-// Design: B5 one thread per element, grid-stride, coalesced; B9 one
-// 256-thread block per 1024-lane row, the row max reduced by reduce.cuh's
-// fixed fmaxf tree (exact in any order), as quant_pack_amax.cu does. The
-// uniform is made in registers, so no random operand is read.
+// Bound: memory. B5 reads 4 bytes of x an element once for all G slices and
+// writes 4 bytes an element a slice (plus alpha: one float per row a slice
+// for the (R, 1) column, or 4 bytes an element a slice for (R, 1024)); two
+// transcendentals an element a slice and, when stochastic, the ~10 integer
+// operations of the murmur3 mix. B9 writes 4 bytes of row max a row besides.
+// Design: B5 one thread per element of the plane, grid-stride over blocks of
+// 256 elements (a block's elements lie in one row, 1024 / 256 blocks a row),
+// x loaded once and G outputs written, each slice's coalesced; on the column
+// the block's G clips, their biases log2f(alpha) and keys are staged once
+// in shared memory (256 slices at a time), not once an element a slice. B9
+// one 256-thread block per 1024-lane row, the row max reduced by
+// reduce.cuh's fixed fmaxf tree (exact in any order), as quant_pack_amax.cu
+// does. The uniform is made in registers, so no random operand is read.
 #include "reduce.cuh"
 
 // One element: clip, exponent clamped at its largest code, round (to
-// nearest even, or stochastically from the counter bits of global element
-// index i), |q| saturated there, dequantize.
-__device__ __forceinline__ float fake_quant_elem(float x, float a,
-                                                 const fp8::Fmt& f,
-                                                 bool stochastic, uint32_t i,
-                                                 uint32_t k0, uint32_t k1) {
+// nearest even, or stochastically from the counter bits of element index i),
+// |q| saturated there, dequantize; b = bias(a, f), from a caller that shares
+// it among the elements of one clip (the same value, so the same result).
+__device__ __forceinline__ float fake_quant_elem_b(float x, float a, float b,
+                                                   const fp8::Fmt& f,
+                                                   bool stochastic, uint32_t i,
+                                                   uint32_t k0, uint32_t k1) {
   const float p_max = (float)((1 << f.exp) - 1);
   const float v_max = (float)((1 << (f.mant + 1)) - 1);
-  const float b = fp8::bias(a, f);
   const float xc = fp8::clip(x, a);
   const float p = fminf(fp8::exponent(xc, b), p_max);
   const float s = fp8::scale(p, b, f);
@@ -53,19 +60,55 @@ __device__ __forceinline__ float fake_quant_elem(float x, float a,
   return s * q;
 }
 
-__global__ void fake_quant_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ a2, int a_cols,
-                                  const uint32_t* __restrict__ key,
-                                  float* __restrict__ out, long long n,
-                                  fp8::Fmt f) {
-  const bool stochastic = key != nullptr;
-  const uint32_t k0 = stochastic ? key[0] : 0u;
-  const uint32_t k1 = stochastic ? key[1] : 0u;
+// x: the (R, 1024) plane, n = R * 1024 elements; a3: G alpha slices, each
+// (R, 1) (COL) or (R, 1024); keys: (G, 2) u32 (RAND); out: (G, R, 1024)
+template <bool COL, bool RAND>
+__global__ void fake_quant_many_kernel(const float* __restrict__ x,
+                                       const float* __restrict__ a3,
+                                       const uint32_t* __restrict__ keys,
+                                       float* __restrict__ out, long long n, int G,
+                                       fp8::Fmt f) {
+  __shared__ float sa[fp8::kThreads], sb[fp8::kThreads];
+  __shared__ uint32_t sk0[fp8::kThreads], sk1[fp8::kThreads];
+  const long long rows = n / fp8::kLane;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float a = a2[a_cols == 1 ? i / fp8::kLane : i];
-    out[i] = fake_quant_elem(x[i], a, f, stochastic, (uint32_t)i, k0, k1);
+  // block-uniform: every thread of a block makes the same trips
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < n; base += stride) {
+    const long long i = base + threadIdx.x;   // n is a multiple of 1024: i < n
+    const long long r = base / fp8::kLane;    // the block's row
+    const float xi = x[i];
+    for (int g0 = 0; g0 < G; g0 += fp8::kThreads) {
+      const int gn = min(G - g0, fp8::kThreads);
+      if (COL || RAND) {
+        __syncthreads();
+        if ((int)threadIdx.x < gn) {
+          const long long g = g0 + threadIdx.x;
+          if (COL) {
+            const float a = a3[g * rows + r];
+            sa[threadIdx.x] = a;
+            sb[threadIdx.x] = fp8::bias(a, f);
+          }
+          if (RAND) {
+            sk0[threadIdx.x] = keys[2 * g];
+            sk1[threadIdx.x] = keys[2 * g + 1];
+          }
+        }
+        __syncthreads();
+      }
+      for (int j = 0; j < gn; ++j) {
+        const long long g = g0 + j;
+        float a, b;
+        if constexpr (COL) {
+          a = sa[j];
+          b = sb[j];
+        } else {
+          a = a3[g * n + i];
+          b = fp8::bias(a, f);
+        }
+        out[g * n + i] = fake_quant_elem_b(xi, a, b, f, RAND, (uint32_t)i,
+                                           RAND ? sk0[j] : 0u, RAND ? sk1[j] : 0u);
+      }
+    }
   }
 }
 
@@ -87,20 +130,36 @@ __global__ void fake_quant_amax_kernel(const float* __restrict__ x,
     const float xe = x[e];
     mx = fmaxf(mx, fabsf(xe));
     const float a = a2[a_cols == 1 ? r : e];
-    out[e] = fake_quant_elem(xe, a, f, stochastic, (uint32_t)e, k0, k1);
+    out[e] = fake_quant_elem_b(xe, a, fp8::bias(a, f), f, stochastic, (uint32_t)e, k0, k1);
   }
   const float m = fp8::block_max(mx, sh);
   if (threadIdx.x == 0) rowmax[r] = m;
 }
 
-extern "C" int repro_fake_quant_tiles(const float* x, const float* a2,
-                                      int a_cols, const uint32_t* key,
-                                      float* out, long long n, int exp,
-                                      int mant, float mant_const,
-                                      cudaStream_t stream) {
+// ``g`` clip slices of the n-element plane x (n a multiple of 1024), keys
+// (g, 2) u32 or null (det)
+extern "C" int repro_fake_quant_many(const float* x, const float* a3, int a_cols,
+                                     const uint32_t* keys, float* out, long long n, int g,
+                                     int exp, int mant, float mant_const,
+                                     cudaStream_t stream) {
+  if (n <= 0 || g <= 0) return 0;
   const fp8::Fmt f{exp, mant, mant_const};
-  fake_quant_kernel<<<fp8::grid_for(n), fp8::kThreads, 0, stream>>>(
-      x, a2, a_cols, key, out, n, f);
+  const int grid = fp8::grid_for(n);
+  if (a_cols == 1) {
+    if (keys != nullptr) {
+      fake_quant_many_kernel<true, true><<<grid, fp8::kThreads, 0, stream>>>(x, a3, keys, out,
+                                                                             n, g, f);
+    } else {
+      fake_quant_many_kernel<true, false><<<grid, fp8::kThreads, 0, stream>>>(x, a3, keys, out,
+                                                                              n, g, f);
+    }
+  } else if (keys != nullptr) {
+    fake_quant_many_kernel<false, true><<<grid, fp8::kThreads, 0, stream>>>(x, a3, keys, out, n,
+                                                                            g, f);
+  } else {
+    fake_quant_many_kernel<false, false><<<grid, fp8::kThreads, 0, stream>>>(x, a3, keys, out,
+                                                                             n, g, f);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -349,13 +349,14 @@ __device__ __forceinline__ float round_rand(float y, uint32_t bits) {
 // its largest code (E2M1: 3; E3M0: 7, where 1 << mant == 1 makes every
 // nonzero v normal). The FP8 encode (quant_pack.cu), the FP4 encode
 // (quant_pack_sub.cu) and their amax variants (quant_pack_amax.cu) all call
-// this one function, so their codes cannot drift apart.
-__device__ __forceinline__ int pack_code(float x, float a, const Fmt& f,
-                                         bool stochastic, uint32_t idx,
-                                         uint32_t k0, uint32_t k1) {
+// this one function, so their codes cannot drift apart. pack_code_b takes
+// the clip's bias b = bias(a, f) from a caller that shares it among the
+// elements of one clip (the same value, so the same code).
+__device__ __forceinline__ int pack_code_b(float x, float a, float b, const Fmt& f,
+                                           bool stochastic, uint32_t idx,
+                                           uint32_t k0, uint32_t k1) {
   const int top = 1 << (f.mant + 1);
   const float p_max = (float)((1 << f.exp) - 1);
-  const float b = bias(a, f);
   const float xc = clip(x, a);
   float p = fminf(exponent(xc, b), p_max);
   const float s = scale(p, b, f);
@@ -376,6 +377,12 @@ __device__ __forceinline__ int pack_code(float x, float a, const Fmt& f,
   const int field = normal ? (int)p : 0;
   const int m_field = normal ? v - (1 << f.mant) : v;
   return (sign << (f.exp + f.mant)) | (field << f.mant) | m_field;
+}
+
+__device__ __forceinline__ int pack_code(float x, float a, const Fmt& f,
+                                         bool stochastic, uint32_t idx,
+                                         uint32_t k0, uint32_t k1) {
+  return pack_code_b(x, a, bias(a, f), f, stochastic, idx, k0, k1);
 }
 
 // One code back to its f32 grid value (fp8_quant.py::_decode_codes), shared

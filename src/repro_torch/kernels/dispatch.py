@@ -269,6 +269,22 @@ def quant_pack_sub_tiles(x2: torch.Tensor, a2: torch.Tensor,
     return fp8_quant.quant_pack_sub_tiles(x2, a2, key2, fmt)
 
 
+def quant_pack_sub_many(x3: torch.Tensor, a3: torch.Tensor,
+                        keys: torch.Tensor | None = None,
+                        fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """:func:`quant_pack_sub_tiles` of a cohort's ``(P, R, LANE)`` planes,
+    each with its own alphas and ``(2,)`` key row, in one launch."""
+    return fp8_quant.quant_pack_sub_many(x3, a3, keys, fmt)
+
+
+def fake_quant_many(x2: torch.Tensor, a3: torch.Tensor,
+                    keys: torch.Tensor | None = None,
+                    fmt: FP8Format = E4M3) -> torch.Tensor:
+    """:func:`fake_quant_tiles` of one plane at G clip slices ``a3``, each
+    with its own ``(2,)`` key row, in one launch: ``(G, R, LANE)`` f32."""
+    return fp8_quant.fake_quant_many(x2, a3, keys, fmt)
+
+
 def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor,
                      fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
     """Decode sub-byte packed code tiles back to ``(R, LANE)`` f32 grid values."""

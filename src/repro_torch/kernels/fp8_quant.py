@@ -10,10 +10,10 @@ their wrappers are in ``kernels.rans`` and ``kernels.fp8_matmul``):
 * ``quant_det_bwd``             — ``csrc/quant_det_bwd.cu``
 * ``quant_pack_tiles``          — ``csrc/quant_pack.cu``
 * ``unpack_tiles``              — ``csrc/unpack.cu``
-* ``fake_quant_tiles``          — ``csrc/fake_quant.cu``
+* ``fake_quant_tiles``          — ``csrc/fake_quant.cu`` (``fake_quant_many``: G clips)
 * ``quant_rand``                — ``csrc/quant_rand.cu``
 * ``quant_rand_bwd``            — ``csrc/quant_rand.cu``
-* ``quant_pack_sub_tiles``      — ``csrc/quant_pack_sub.cu``
+* ``quant_pack_sub_tiles``      — ``csrc/quant_pack_sub.cu`` (``quant_pack_sub_many``: P planes)
 * ``unpack_sub_tiles``          — ``csrc/unpack.cu``
 * ``quant_pack_amax_tiles``     — ``csrc/quant_pack_amax.cu``
 * ``quant_pack_sub_amax_tiles`` — ``csrc/quant_pack_amax.cu``
@@ -149,14 +149,15 @@ def load() -> ctypes.CDLL:
         lib.repro_quant_det_bwd.argtypes = [p, p, p, p, p, p, i64, i32, *fmt_args, p]
         lib.repro_quant_pack_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
         lib.repro_unpack_tiles.argtypes = [p, p, i32, p, i64, *fmt_args, p]
-        lib.repro_fake_quant_tiles.argtypes = [p, p, i32, p, p, i64, *fmt_args, p]
+        lib.repro_fake_quant_many.argtypes = [p, p, i32, p, p, i64, i32, *fmt_args, p]
         lib.repro_fake_quant_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_det_tiles.argtypes = [p, p, p, i64, *fmt_args, p]
         lib.repro_quant_det_tiles_bwd.argtypes = [p, p, p, p, p, i64, *fmt_args, p]
         u32 = ctypes.c_uint32
         lib.repro_quant_rand.argtypes = [p, p, p, p, u32, p, i64, *fmt_args, p]
         lib.repro_quant_rand_bwd.argtypes = [p, p, p, p, u32, p, p, p, p, i64, *fmt_args, p]
-        lib.repro_quant_pack_sub_tiles.argtypes = [p, p, i32, p, p, i64, i32, *fmt_args, p]
+        lib.repro_quant_pack_sub_many.argtypes = [p, p, i32, p, p, i64, i64, i32, *fmt_args,
+                                                  p]
         lib.repro_unpack_sub_tiles.argtypes = [p, p, i32, p, i64, i32, *fmt_args, p]
         lib.repro_quant_pack_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, i32,
                                                     *fmt_args, p]
@@ -171,9 +172,9 @@ def load() -> ctypes.CDLL:
         lib.repro_qat_matmul_dw.argtypes = lib.repro_qat_matmul_dx.argtypes
         for fn in (lib.repro_quant_det, lib.repro_quant_det_bwd_workspace,
                    lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
-                   lib.repro_unpack_tiles, lib.repro_fake_quant_tiles,
+                   lib.repro_unpack_tiles, lib.repro_fake_quant_many,
                    lib.repro_quant_rand, lib.repro_quant_rand_bwd,
-                   lib.repro_quant_pack_sub_tiles, lib.repro_unpack_sub_tiles,
+                   lib.repro_quant_pack_sub_many, lib.repro_unpack_sub_tiles,
                    lib.repro_quant_pack_amax_tiles, lib.repro_rans_encode,
                    lib.repro_rans_decode, lib.repro_rans_chain, lib.repro_qat_matmul,
                    lib.repro_qat_matmul_dx,
@@ -356,17 +357,41 @@ def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
                      fmt: FP8Format = E4M3) -> torch.Tensor:
     """Quantize -> dequantize ``(R, 1024)`` f32 tiles to f32 grid values (no
     codes); ``key2`` is a ``(2,)`` u32 key for stochastic rounding from the
-    counter RNG, None for deterministic. ``a2`` is ``(R, 1)`` or ``(R, 1024)``."""
+    counter RNG, None for deterministic. ``a2`` is ``(R, 1)`` or ``(R, 1024)``.
+    The G = 1 launch of :func:`fake_quant_many`."""
     if _on_cpu(x2, a2, key2):
         return ref.fake_quant_tiles(x2, a2, key2, fmt)
     _check(x2, "x2", torch.float32)
-    a_cols = _check_alpha_tiles(x2, a2)
+    _check_alpha_tiles(x2, a2)
     if key2 is not None:
         _check(key2, "key2", torch.uint32, (2,))
-    out = torch.empty_like(x2)
-    rc = load().repro_fake_quant_tiles(
-        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), out.data_ptr(),
-        x2.numel(), *_fmt_args(fmt), _stream())
+    return _fake_quant_many(x2, a2[None], None if key2 is None else key2[None], fmt)[0]
+
+
+def fake_quant_many(x2: torch.Tensor, a3: torch.Tensor,
+                    keys: torch.Tensor | None = None,
+                    fmt: FP8Format = E4M3) -> torch.Tensor:
+    """One plane at G clips in one launch: ``(R, 1024)`` f32 tiles, alphas
+    ``(G, R, 1)`` or ``(G, R, 1024)``, ``keys`` ``(G, 2)`` u32 (None:
+    deterministic) -> ``(G, R, 1024)`` f32; slice g is bitwise
+    ``fake_quant_tiles(x2, a3[g], keys[g])``."""
+    if _on_cpu(x2, a3, keys):
+        return ref.fake_quant_tiles_many(x2, a3, keys, fmt)
+    _check(x2, "x2", torch.float32)
+    if a3.dim() != 3:
+        raise ValueError(f"alpha must be (G, R, 1) or (G, R, {LANE}), got {tuple(a3.shape)}")
+    _check_alpha_tiles(x2, a3[0])
+    _check(a3, "alpha", torch.float32)
+    if keys is not None:
+        _check(keys, "keys", torch.uint32, (a3.shape[0], 2))
+    return _fake_quant_many(x2, a3, keys, fmt)
+
+
+def _fake_quant_many(x2, a3, keys, fmt) -> torch.Tensor:
+    out = torch.empty((a3.shape[0], *x2.shape), dtype=torch.float32, device=x2.device)
+    rc = load().repro_fake_quant_many(
+        x2.data_ptr(), a3.data_ptr(), int(a3.shape[2]), _ptr(keys), out.data_ptr(),
+        x2.numel(), a3.shape[0], *_fmt_args(fmt), _stream())
     _launched(rc, "fake_quant_tiles")
     return out
 
@@ -437,18 +462,45 @@ def quant_pack_sub_tiles(x2: torch.Tensor, a2: torch.Tensor,
                          fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
     """Quantize + pack ``(R, 1024)`` f32 tiles at ``8 // fmt.bits`` codes per
     byte -> ``(R, 1024 // k)`` u8 (FP4: code 2j in the low nibble of byte j);
-    ``key2`` a ``(2,)`` u32 key for stochastic rounding, None for det."""
+    ``key2`` a ``(2,)`` u32 key for stochastic rounding, None for det. The
+    P = 1 launch of :func:`quant_pack_sub_many`."""
     k = _sub_codes(fmt)
     if _on_cpu(x2, a2, key2):
         return ref.quant_pack_sub_tiles(x2, a2, key2, fmt)
     _check(x2, "x2", torch.float32)
-    a_cols = _check_alpha_tiles(x2, a2)
+    _check_alpha_tiles(x2, a2)
     if key2 is not None:
         _check(key2, "key2", torch.uint32, (2,))
-    out = torch.empty((x2.shape[0], LANE // k), dtype=torch.uint8, device=x2.device)
-    rc = load().repro_quant_pack_sub_tiles(
-        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), out.data_ptr(),
-        out.numel(), k, *_fmt_args(fmt), _stream())
+    return _pack_sub_many(x2[None], a2[None], None if key2 is None else key2[None], k, fmt)[0]
+
+
+def quant_pack_sub_many(x3: torch.Tensor, a3: torch.Tensor,
+                        keys: torch.Tensor | None = None,
+                        fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """A cohort's FP4 encodes in one launch: ``(P, R, 1024)`` f32 tiles,
+    alphas ``(P, R, 1)`` or ``(P, R, 1024)``, ``keys`` ``(P, 2)`` u32 (None:
+    deterministic) -> ``(P, R, 1024 // k)`` u8; slice p is bitwise
+    ``quant_pack_sub_tiles(x3[p], a3[p], keys[p])``."""
+    k = _sub_codes(fmt)
+    if _on_cpu(x3, a3, keys):
+        return ref.quant_pack_sub_tiles_many(x3, a3, keys, fmt)
+    _check(x3, "x3", torch.float32)
+    if x3.dim() != 3 or a3.dim() != 3 or a3.shape[0] != x3.shape[0]:
+        raise ValueError(f"tiles must be (P, R, {LANE}) with alpha (P, R, 1) or (P, R, {LANE}),"
+                         f" got {tuple(x3.shape)} and {tuple(a3.shape)}")
+    _check_alpha_tiles(x3[0], a3[0])
+    _check(a3, "alpha", torch.float32)
+    if keys is not None:
+        _check(keys, "keys", torch.uint32, (x3.shape[0], 2))
+    return _pack_sub_many(x3, a3, keys, k, fmt)
+
+
+def _pack_sub_many(x3, a3, keys, k: int, fmt) -> torch.Tensor:
+    p, rows = x3.shape[0], x3.shape[1]
+    out = torch.empty((p, rows, LANE // k), dtype=torch.uint8, device=x3.device)
+    rc = load().repro_quant_pack_sub_many(
+        x3.data_ptr(), a3.data_ptr(), int(a3.shape[2]), _ptr(keys), out.data_ptr(), p,
+        rows * (LANE // k), k, *_fmt_args(fmt), _stream())
     _launched(rc, "quant_pack_sub_tiles")
     return out
 

@@ -294,6 +294,47 @@ def fake_quant_tiles(x2: torch.Tensor, a2: torch.Tensor,
     return fake_quant_bits(x2, a2, bits, fmt)
 
 
+def slice_counter_bits(shape: tuple[int, int, int], keys: torch.Tensor) -> torch.Tensor:
+    """counter_bits over a ``(S, rows, LANE)`` stack of tile slices, slice s
+    keyed by ``keys[s]`` (``(S, 2)`` u32) over its own element index
+    ``row * LANE + col``: each slice's :func:`tile_counter_bits`."""
+    k = keys.to(torch.int64)
+    idx = torch.arange(shape[1] * shape[2], dtype=torch.int64,
+                       device=keys.device).reshape(shape[1:])
+    return counter_bits(idx, k[:, 0, None, None], k[:, 1, None, None])
+
+
+def _slice_bias(a3: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
+    """The bias of a ``(S, R, 1 | LANE)`` alpha stack, each slice's as its
+    single-plane twin computes it: this CPU's log2, like its exp2
+    (:func:`_exp2_vectors`), rounds a tensor's vectorized body and its tail
+    differently, so a short column is taken slice by slice (a (R, LANE)
+    slice is whole vectors either way)."""
+    a = a3.to(torch.float32)
+    if a.shape[2] == LANE:
+        return _bias(a, fmt)
+    return torch.stack([_bias(a[i], fmt) for i in range(a.shape[0])])
+
+
+def fake_quant_tiles_many(x2: torch.Tensor, a3: torch.Tensor,
+                          keys: torch.Tensor | None = None,
+                          fmt: FP8Format = E4M3) -> torch.Tensor:
+    """Twin of ``fake_quant_many_kernel``: the ``(R, LANE)`` plane at G clip
+    slices ``a3`` (``(G, R, 1)`` or ``(G, R, LANE)``), slice g rounded with
+    ``keys[g]`` (``(G, 2)`` u32; None: to nearest even) -> ``(G, R, LANE)``;
+    slice g is :func:`fake_quant_tiles` ``(x2, a3[g], keys[g])``."""
+    a = a3.to(torch.float32)
+    b = _slice_bias(a, fmt)
+    xc = _clip(x2[None], a)
+    p, s = _scale_p(xc, b, fmt, saturate=True)
+    y = xc / s
+    bits = None if keys is None else slice_counter_bits((a.shape[0], *x2.shape), keys)
+    q = torch.round(y) if bits is None else _round_rand(y, bits)
+    vmax = float(2 ** (fmt.mant + 1) - 1)
+    q = torch.where(p >= float(fmt.max_exp_code), torch.clamp(q, -vmax, vmax), q)
+    return s * q
+
+
 def fake_quant_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
                           key2: torch.Tensor | None = None, fmt: FP8Format = E4M3):
     """Twin of ``fake_quant_amax_tiles`` (B9): :func:`fake_quant_tiles` and
@@ -326,28 +367,29 @@ def quant_det_tiles_bwd(x2: torch.Tensor, a_col: torch.Tensor, g2: torch.Tensor,
     return gx, torch.sum(route, dim=1, keepdim=True)
 
 
-def _pack_codes(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,
-                fmt: FP8Format, row0: int = 0) -> torch.Tensor:
-    """Twin of ``_pack_code`` over the tile layout: int32 ``[sign|exp|mant]``
-    codes, stochastic from the counter RNG when ``key2`` is given (the
-    tiles' first row being absolute row ``row0``)."""
+def _tile_bits(shape, key2: torch.Tensor | None, row0: int = 0):
+    """The counter bits of ``(R, LANE)`` tiles at ``key2`` (None: det)."""
+    return None if key2 is None else tile_counter_bits(tuple(shape), key2, row0)
+
+
+def _pack_codes(x2: torch.Tensor, a2: torch.Tensor, bits: torch.Tensor | None,
+                fmt: FP8Format, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Twin of ``_pack_code`` over the tile layout (or a stack of slices):
+    int32 ``[sign|exp|mant]`` codes, stochastic from the counter ``bits``
+    when given; ``b`` the alphas' bias where the caller made it."""
     a = a2.to(torch.float32)
-    b = _bias(a, fmt)
+    b = _bias(a, fmt) if b is None else b
     xc = _clip(x2, a)
     p, s = _scale_p(xc, b, fmt, saturate=True)
-    return _round_code(xc / s, p, key2, fmt, row0)
+    return _round_code(xc / s, p, bits, fmt)
 
 
-def _round_code(y: torch.Tensor, p: torch.Tensor, key2: torch.Tensor | None,
-                fmt: FP8Format, row0: int = 0) -> torch.Tensor:
-    """``_pack_code``'s tail: ``y = xc / s`` of the ``(R, LANE)`` tiles at
-    exponent ``p``, rounded (to nearest even, or from the counter bits of
-    ``key2`` with the tiles' first row at absolute row ``row0``), to int32
+def _round_code(y: torch.Tensor, p: torch.Tensor, bits: torch.Tensor | None,
+                fmt: FP8Format) -> torch.Tensor:
+    """``_pack_code``'s tail: ``y = xc / s`` of the tiles at exponent ``p``,
+    rounded (to nearest even, or from the counter ``bits``), to int32
     ``[sign|exp|mant]`` codes."""
-    if key2 is None:
-        v_signed = torch.round(y)
-    else:
-        v_signed = _round_rand(y, tile_counter_bits(tuple(y.shape), key2, row0))
+    v_signed = torch.round(y) if bits is None else _round_rand(y, bits)
     sign = (v_signed < 0).to(torch.int32)
     v = torch.abs(v_signed).to(torch.int32)
     top = 2 ** (fmt.mant + 1)
@@ -373,7 +415,7 @@ def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
     ``row0`` the absolute row of the tiles' first (a slice of a plane draws
     its counter bits at the plane's element indices).
     """
-    return _pack_codes(x2, a2, key2, fmt, row0).to(torch.uint8)
+    return _pack_codes(x2, a2, _tile_bits(x2.shape, key2, row0), fmt).to(torch.uint8)
 
 
 def _decode_codes(code: torch.Tensor, a2: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
@@ -447,7 +489,7 @@ def quant_pack_rows(x2: torch.Tensor, a_col: torch.Tensor,
             rows = a[:, 0] == alpha
             p[rows] = table_p(xc[rows], scale_table(alpha, fmt))
     s = torch.gather(wire_row_scales(a, fmt), 1, p.to(torch.int64))
-    return _round_code(xc / s, p, key2, fmt).to(torch.uint8)
+    return _round_code(xc / s, p, _tile_bits(xc.shape, key2), fmt).to(torch.uint8)
 
 
 def unpack_rows(c2: torch.Tensor, a_col: torch.Tensor, fmt: FP8Format = E4M3) -> torch.Tensor:
@@ -477,13 +519,13 @@ def codes_per_byte(fmt: FP8Format) -> int:
 
 
 def fold_codes(codes: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
-    """``(R, L)`` b-bit codes -> ``(R, L // (8 // b))`` u8, little-endian:
+    """``(..., L)`` b-bit codes -> ``(..., L // (8 // b))`` u8, little-endian:
     code ``k*i + j`` in bits ``j*b .. (j+1)*b`` of byte ``i``."""
     k = codes_per_byte(fmt)
     if k == 1:
         return codes.to(torch.uint8)
-    rows, lanes = codes.shape
-    c = codes.to(torch.int32).reshape(rows, lanes // k, k)
+    *lead, lanes = codes.shape
+    c = codes.to(torch.int32).reshape(*lead, lanes // k, k)
     out = c[..., 0]
     for j in range(1, k):
         out = out | (c[..., j] << (fmt.bits * j))
@@ -506,7 +548,17 @@ def quant_pack_sub_tiles(x2: torch.Tensor, a2: torch.Tensor,
     """Twin of ``_quant_pack_sub_det_kernel`` / ``_rand_ctr_kernel``:
     ``(R, LANE)`` f32 -> ``(R, LANE // codes_per_byte)`` u8. Tile zero fill
     packs to code 0 under both roundings."""
-    return fold_codes(_pack_codes(x2, a2, key2, fmt), fmt)
+    return fold_codes(_pack_codes(x2, a2, _tile_bits(x2.shape, key2), fmt), fmt)
+
+
+def quant_pack_sub_tiles_many(x3: torch.Tensor, a3: torch.Tensor,
+                              keys: torch.Tensor | None, fmt: FP8Format) -> torch.Tensor:
+    """Twin of ``quant_pack_sub_kernel`` over a cohort: ``(P, R, LANE)`` f32
+    at alphas ``(P, R, 1 | LANE)``, slice p rounded with ``keys[p]`` (``(P,
+    2)`` u32; None: det) -> ``(P, R, LANE // codes_per_byte)`` u8; slice p is
+    :func:`quant_pack_sub_tiles` ``(x3[p], a3[p], keys[p])``."""
+    bits = None if keys is None else slice_counter_bits(tuple(x3.shape), keys)
+    return fold_codes(_pack_codes(x3, a3, bits, fmt, _slice_bias(a3, fmt)), fmt)
 
 
 def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor, fmt: FP8Format) -> torch.Tensor:

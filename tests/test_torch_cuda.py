@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.core.fp8 import E4M3, E5M2, FP4_E2M1, FP4_E3M0
 from repro_torch.kernels import dispatch, fp8_quant, ref
 
@@ -538,6 +539,160 @@ def test_new_wrappers_count_and_validate(dev):
         fp8_quant.quant_pack_sub_tiles(x, col.cpu())
     with pytest.raises(ValueError, match="one byte each"):
         fp8_quant.quant_pack_sub_tiles(x, col, None, E4M3)
+
+
+# --- the cohort launches: B8 over P planes, B5 over G clip slices -----------
+
+
+def _alpha_stack(x3, layout):
+    """Clips for a stack of planes: a row-max column, it expanded to (R,
+    1024), or (R, 1024) varying within rows."""
+    col = x3.abs().amax(dim=2, keepdim=True) * 0.9
+    if layout == "column":
+        return col
+    if layout == "full":
+        return col.expand(x3.shape).contiguous()
+    g = torch.Generator(device=x3.device).manual_seed(3)
+    return col * (0.7 + 0.3 * torch.rand(x3.shape, generator=g, device=x3.device))
+
+
+@pytest.mark.parametrize("p", [1, 3, 20])
+@pytest.mark.parametrize("rows", [1, 9, 135, 8191])
+@pytest.mark.parametrize("fmt", list(FP4))
+@pytest.mark.parametrize("layout", ["column", "full", "varying"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_cohort_encode_is_its_twin_and_p_single_launches(dev, p, rows, fmt, layout,
+                                                         stochastic):
+    f = FP4[fmt]
+    x3 = _randn((p, rows, 1024), 43 + rows, 0.2, dev)
+    x3[:, -1, 517:] = 0.0
+    a3 = _alpha_stack(x3, layout)
+    keys = qat_probe.key_rows(p, dev, 44) if stochastic else None
+    before = fp8_quant.LAUNCHES["quant_pack_sub_tiles"]
+    codes = fp8_quant.quant_pack_sub_many(x3, a3, keys, f)
+    assert fp8_quant.LAUNCHES["quant_pack_sub_tiles"] == before + 1
+    assert codes.dtype == torch.uint8 and tuple(codes.shape) == (p, rows, 512)
+    assert torch.equal(codes, ref.quant_pack_sub_tiles_many(x3, a3, keys, f))
+    for i in range(p):
+        k = None if keys is None else keys[i]
+        assert torch.equal(codes[i], fp8_quant.quant_pack_sub_tiles(x3[i], a3[i], k, f))
+
+
+@pytest.mark.parametrize("g_count", [1, 3, 20])
+@pytest.mark.parametrize("rows", [1, 9, 135, 8191])
+@pytest.mark.parametrize("layout", ["column", "full", "varying"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_clip_search_is_its_twin_and_g_single_launches(dev, g_count, rows, layout, stochastic):
+    x = _randn((rows, 1024), 45 + rows, 0.2, dev)
+    a3 = _alpha_stack(x[None].expand(g_count, rows, 1024), layout)
+    a3 = a3 * torch.linspace(0.5, 1.0, g_count, device=dev)[:, None, None]
+    keys = qat_probe.key_rows(g_count, dev, 46) if stochastic else None
+    before = fp8_quant.LAUNCHES["fake_quant_tiles"]
+    q = fp8_quant.fake_quant_many(x, a3, keys)
+    assert fp8_quant.LAUNCHES["fake_quant_tiles"] == before + 1
+    assert q.dtype == torch.float32 and tuple(q.shape) == (g_count, rows, 1024)
+    assert torch.equal(q.view(torch.int32),
+                       ref.fake_quant_tiles_many(x, a3, keys).view(torch.int32))
+    for i in range(g_count):
+        k = None if keys is None else keys[i]
+        assert torch.equal(q[i].view(torch.int32),
+                           fp8_quant.fake_quant_tiles(x, a3[i], k).view(torch.int32))
+
+
+def test_cohort_wrappers_validate_inputs(dev):
+    x3 = _randn((3, 4, 1024), 47, 0.2, dev)
+    a3 = x3.abs().amax(dim=2, keepdim=True)
+    keys = qat_probe.key_rows(3, dev, 48)
+    with pytest.raises(TypeError, match="float32"):
+        fp8_quant.quant_pack_sub_many(x3.double(), a3, keys)
+    with pytest.raises(TypeError, match="uint32"):
+        fp8_quant.quant_pack_sub_many(x3, a3, keys.to(torch.int64))
+    with pytest.raises(ValueError, match=r"\(3, 2\)"):
+        fp8_quant.quant_pack_sub_many(x3, a3, keys[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        fp8_quant.quant_pack_sub_many(x3.transpose(0, 1).contiguous().transpose(0, 1), a3)
+    with pytest.raises(ValueError, match=r"\(P, R, 1024\)"):
+        fp8_quant.quant_pack_sub_many(x3, a3[:2])
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        fp8_quant.quant_pack_sub_many(x3, a3.cpu(), keys)
+    with pytest.raises(ValueError, match="one byte each"):
+        fp8_quant.quant_pack_sub_many(x3, a3, None, E4M3)
+    with pytest.raises(TypeError, match="float32"):
+        fp8_quant.fake_quant_many(x3[0], a3.double(), keys)
+    with pytest.raises(ValueError, match=r"\(R, 1\)"):
+        fp8_quant.fake_quant_many(x3[0], torch.ones((3, 4, 2), device=dev), keys)
+    with pytest.raises(ValueError, match=r"\(G, R, 1\)"):
+        fp8_quant.fake_quant_many(x3[0], a3[0], keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        fp8_quant.fake_quant_many(x3[0].t().contiguous().t(), a3, keys)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        fp8_quant.fake_quant_many(x3[0], a3, keys.cpu())
+
+
+def test_cohort_encode_takes_views_off_a_16_byte_boundary(dev):
+    """x and the alphas as views off a 16-byte boundary: the same codes."""
+    n = 3 * 9 * 1024
+    x3 = _randn((n + 4,), 49, 0.2, dev)[1:1 + n].view(3, 9, 1024)
+    for layout in ("column", "full"):
+        a3 = _alpha_stack(x3, layout)
+        keys = qat_probe.key_rows(3, dev, 50)
+        assert torch.equal(fp8_quant.quant_pack_sub_many(x3, a3, keys),
+                           ref.quant_pack_sub_tiles_many(x3, a3, keys, FP4_E2M1))
+
+
+def test_server_step_on_lenet_is_the_per_point_search_in_six_launches(dev):
+    """UQ+ on LeNet's plane (P = 3, the paper's 5 GD steps and 20 grid
+    points): the parent's tree bitwise, in 5 + 1 launches of B5."""
+    from test_torch_cohort_launch import server_optimize_per_point
+
+    from repro_torch.core.server_opt import ServerOptConfig, server_optimize
+    from repro_torch.models import small
+    from repro_torch.tree import tree_map
+
+    params = small.init_lenet(0, device=dev)
+    stacked = tree_map(lambda v: torch.stack([v, v * 1.01, v * 0.99]), params)
+    nk = torch.tensor([1.0, 2.0, 3.0], device=dev)
+    cfg = ServerOptConfig(enabled=True, gd_steps=5, lr=0.1, n_grid=20)
+    gd_keys, grid_keys = qat_probe.key_rows(5, dev, 51), qat_probe.key_rows(20, dev, 52)
+    before = fp8_quant.LAUNCHES["fake_quant_tiles"]
+    got = server_optimize(stacked, nk, gd_keys, grid_keys, cfg)
+    assert fp8_quant.LAUNCHES["fake_quant_tiles"] == before + 6
+    want = server_optimize_per_point(stacked, nk, gd_keys, grid_keys, cfg)
+    for (n, a), (_, b) in zip(tree.flatten(got), tree.flatten(want)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), n
+
+
+@pytest.mark.parametrize("up", ["fp4_e2m1", "fp4_e3m0_det", "delta:fp4_e2m1",
+                                "rans:fp4_e2m1", "ef:fp4_e2m1_det", "ef:rans:fp4_e2m1_det"])
+def test_cohort_uplink_on_the_card_is_one_encode_launch(dev, up):
+    """A cohort's FP4 uplink is one B8 launch, and its messages are the
+    per-client uplink's bit for bit."""
+    from test_torch_cohort_launch import ef_per_client, up_per_client
+
+    from repro_torch.core import codec, wire
+    from repro_torch.core.engine import WireLink
+    from repro_torch.models import small
+
+    params = small.init_lenet(0, device=dev)
+    clients = [tree.tree_map(lambda v, s=s: v * s, params) for s in (1.01, 0.99, 1.02)]
+    spec = wire.make_wire_spec(params)
+    keys = qat_probe.key_rows(3, dev, 53)
+    c = codec.get_codec(up)
+    before = fp8_quant.LAUNCHES["quant_pack_sub_tiles"]
+    if up.startswith("ef:"):
+        e_sel = torch.zeros((3, spec.total), device=dev)
+        msgs, new_e, _ = c.up_transit(list(clients), spec, keys, e_sel)
+        launched = fp8_quant.LAUNCHES["quant_pack_sub_tiles"] - before
+        want, want_e, _ = ef_per_client(c, clients, spec, keys, e_sel)
+        assert torch.equal(new_e, want_e)
+    else:
+        msgs, _ = WireLink("fp4_e2m1", up).up(list(clients), spec, keys, ref=params)
+        launched = fp8_quant.LAUNCHES["quant_pack_sub_tiles"] - before
+        want, _, _ = up_per_client(c, clients, spec, keys, ref_model=params)
+    assert launched == 1
+    for m, w in zip(msgs, want):
+        for (n, a), (_, b) in zip(tree.flatten(m), tree.flatten(w)):
+            assert torch.equal(a, b), (up, n)
 
 
 def test_format_round_on_the_card_runs_the_new_kernels(dev):
