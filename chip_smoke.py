@@ -38,11 +38,15 @@ Phases, each fatal on failure (the script then exits non-zero):
    plain encodes' and their row max equal to ``torch.amax(|x|)``, the FP4
    transit within 1 f32 ULP of ``fake_quant_tiles`` at the FP4 format; the
    batched entries as the paths launch them (``cohort_launch_cases``): B8's
-   cohort encode ``quant_pack_sub_many`` (P = 3) on the format MLP's and
-   LeNet's real planes, both FP4 formats, det and rand, alpha as a column
-   and per element, and B5's clip search ``fake_quant_many`` (G = 20) on
-   each Table 1 model's real plane at its grid's clip columns, det and rand,
-   each bitwise its twin and the P (G) single launches, one launch a call.
+   cohort encode ``quant_pack_sub_many`` and cohort decode
+   ``unpack_sub_many`` (P = 3) on the format MLP's and LeNet's real planes,
+   both FP4 formats, det and rand, alpha as a column and per element; B9's
+   cohort amax encode ``quant_pack_amax_many`` (P = 3, E4M3 and E2M1, one
+   slice of clips expanded over the cohort, as the scaled uplink launches
+   it) on the same planes; and B5's clip search ``fake_quant_many`` (G =
+   20) on each Table 1 model's real plane at its grid's clip columns, det
+   and rand; each bitwise its twin and the P (G) single launches, one
+   launch a call, a second call bitwise the first.
    Bitwise (B1 in f32 with at most 1e-5 of elements allowed to differ,
    adjacent-grid ties; the wire pair exactly), and each scalar
    clip cotangent at relative 1e-5 with a cotangent signed like x. Then the rANS pair (B12
@@ -95,8 +99,10 @@ Phases, each fatal on failure (the script then exits non-zero):
    leg, equal without), the kernels of its codecs must launch (each rANS
    kernel exactly once an entropy-coded leg a round: the downlink's payload,
    then the cohort's uplink payloads in one launch; ``quant_pack_sub_tiles``
-   exactly once an FP4 leg at current scaling a round: the downlink's plane,
-   then the cohort's uplink planes in one launch), the amax encodes must
+   exactly once an FP4 leg at current scaling a round and ``unpack_sub_tiles``
+   once an FP4 leg a round: the downlink's plane, then the cohort's uplink
+   planes in one launch; each amax encode once a delayed leg of its format a
+   round, the cohort's uplink planes in one launch), the amax encodes must
    not launch where no leg is delayed, nor the rANS pair where no leg is
    entropy-coded. One round
    each of the FP4, the E4M3 delayed, the FP4 delayed and the ``fp4|ef+rans``
@@ -156,7 +162,7 @@ Phases, each fatal on failure (the script then exits non-zero):
 
 Before the JSON lines, one ``[launches]`` line: each wire kernel's launches
 (the FP8 and FP4 pairs, B5 and the three amax encodes) summed over every
-path of phases 4-8, and by path. The second-to-last line is a JSON object
+path of phases 4-8, and by path; each total must be ``WIRE_LAUNCH_TOTALS``'. The second-to-last line is a JSON object
 with one entry per kernel (its launches counted on the path that runs it;
 B1/B2 and the wire kernels also over every path of phases 4-8); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -214,9 +220,9 @@ LENET_FORMAT_CELLS = (   # (label, FedConfig overrides, bytes per round)
 FORMAT_ROUNDS = 3       # of each cifar10-lenet format cell
 PROFILED_IN = {   # kernel: (the profiled LeNet cell that runs it, its CUDA name)
     "quant_pack_sub_tiles": ("fp4_e2m1", "quant_pack_sub_kernel<2, true, true>"),
-    "unpack_sub_tiles": ("fp4_e2m1", "unpack_sub_kernel"),
-    "quant_pack_amax_tiles": ("e4m3 delayed:4", "quant_pack_amax_kernel<1>"),
-    "quant_pack_sub_amax_tiles": ("fp4_e2m1 delayed:4", "quant_pack_amax_kernel<2>"),
+    "unpack_sub_tiles": ("fp4_e2m1", "unpack_sub_kernel<2, true>"),
+    "quant_pack_amax_tiles": ("e4m3 delayed:4", "quant_pack_amax_kernel<1, true, true>"),
+    "quant_pack_sub_amax_tiles": ("fp4_e2m1 delayed:4", "quant_pack_amax_kernel<2, true, true>"),
 }
 FORMAT_KERNELS = ("quant_pack_sub_tiles", "unpack_sub_tiles", "quant_pack_amax_tiles",
                   "quant_pack_sub_amax_tiles")
@@ -671,37 +677,77 @@ def _grid_alphas(col, n):
     return col[None] * torch.linspace(0.5, 1.0, n, device=col.device)[:, None, None]
 
 
+def _one_launch(K, name: str, fn, lab: str):
+    """``fn()``, checked to launch ``name`` exactly once."""
+    before = K.LAUNCHES[name]
+    out = fn()
+    check(K.LAUNCHES[name] == before + 1, f"{lab}: not one launch")
+    return out
+
+
 def cohort_launch_cases(dev, K, R, format_planes, planes, key, worst) -> int:
-    """The batched entries at every path's shapes: B8's cohort encode
-    (``quant_pack_sub_many``, P = 3) on the format MLP's and LeNet's real
-    planes, both FP4 formats, det and rand, alpha as a column and per
-    element; B5's clip search (``fake_quant_many``, G = 20) on each Table 1
-    model's real plane at its grid's clip columns, det and rand. Each
-    bitwise its twin and the P (G) single launches, one launch a call."""
+    """The batched entries at every path's shapes: B8's cohort encode and
+    decode (``quant_pack_sub_many``, ``unpack_sub_many``, P = 3) on the
+    format MLP's and LeNet's real planes, both FP4 formats, det and rand,
+    alpha as a column and per element; B9's cohort amax encode
+    (``quant_pack_amax_many``, P = 3) on the same planes at E4M3 and E2M1,
+    det and rand, one slice of clips (a column or per element) expanded
+    over the cohort as the scaled uplink launches it; B5's clip search
+    (``fake_quant_many``, G = 20) on each Table 1 model's real plane at its
+    grid's clip columns, det and rand. Each bitwise its twin and the P (G)
+    single launches, one launch a call; the decode and the amax encode also
+    a second call bitwise the first."""
     import qat_probe
-    from repro_torch.core.fp8 import FP4_E2M1, FP4_E3M0
+    from repro_torch.core.fp8 import E4M3, FP4_E2M1, FP4_E3M0
 
     n = 0
     for label, x2, col in format_planes:
         x3, c3 = _perturbed_stack(x2, COHORT), _perturbed_stack(col, COHORT)
         for a3 in (c3, c3.expand(x3.shape).contiguous()):
             for keys in (None, qat_probe.key_rows(COHORT, dev, 60)):
+                ks = [None if keys is None else keys[i] for i in range(COHORT)]
                 for fmt in (FP4_E2M1, FP4_E3M0):
                     lab = f"{label} cohort a{tuple(a3.shape)} {fmt} {keys is not None}"
-                    before = K.LAUNCHES["quant_pack_sub_tiles"]
-                    c = K.quant_pack_sub_many(x3, a3, keys, fmt)
-                    check(K.LAUNCHES["quant_pack_sub_tiles"] == before + 1,
-                          f"quant_pack_sub_many {lab}: not one launch")
+                    c = _one_launch(K, "quant_pack_sub_tiles",
+                                    lambda: K.quant_pack_sub_many(x3, a3, keys, fmt),
+                                    f"quant_pack_sub_many {lab}")
                     bad, err = mismatches(c, R.quant_pack_sub_tiles_many(x3, a3, keys, fmt))
                     worst["quant_pack_sub_tiles"] = max(worst["quant_pack_sub_tiles"], err)
                     check(bad == 0, f"quant_pack_sub_many {lab}: {bad} codes differ")
-                    check(all(torch.equal(c[i], K.quant_pack_sub_tiles(
-                        x3[i], a3[i], None if keys is None else keys[i], fmt))
-                        for i in range(COHORT)),
-                        f"quant_pack_sub_many {lab}: != single launches")
+                    check(all(torch.equal(c[i], K.quant_pack_sub_tiles(x3[i], a3[i], ks[i], fmt))
+                              for i in range(COHORT)),
+                          f"quant_pack_sub_many {lab}: != single launches")
+                    v = _one_launch(K, "unpack_sub_tiles", lambda: K.unpack_sub_many(c, a3, fmt),
+                                    f"unpack_sub_many {lab}")
+                    bad, err = mismatches(v, R.unpack_sub_tiles_many(c, a3, fmt))
+                    worst["unpack_sub_tiles"] = max(worst["unpack_sub_tiles"], err)
+                    check(bad == 0, f"unpack_sub_many {lab}: {bad} values differ")
+                    check(torch.equal(K.unpack_sub_many(c, a3, fmt), v)
+                          and all(torch.equal(v[i], K.unpack_sub_tiles(c[i], a3[i], fmt))
+                                  for i in range(COHORT)),
+                          f"unpack_sub_many {lab}: != a second call or single launches")
                     n += 1
-        print(f"[kernels] quant_pack_sub_many {label} ({COHORT}, {x2.shape[0]}, 1024): both "
-              f"FP4 formats, det and rand, alpha column and per element: ok")
+                a_one = a3[:1].expand(a3.shape)     # the scaled uplink's shared clips
+                for fmt, name in ((E4M3, "quant_pack_amax_tiles"),
+                                  (FP4_E2M1, "quant_pack_sub_amax_tiles")):
+                    lab = f"{label} cohort a{tuple(a3.shape)} shared {fmt} {keys is not None}"
+                    c, m = _one_launch(K, name, lambda: K.quant_pack_amax_many(x3, a_one, keys, fmt),
+                                       f"quant_pack_amax_many {lab}")
+                    wc, wm = R.quant_pack_amax_tiles_many(x3, a_one, keys, fmt)
+                    bad, err = mismatches(c, wc)
+                    worst[name] = max(worst[name], err)
+                    check(bad == 0 and torch.equal(m, wm),
+                          f"quant_pack_amax_many {lab}: {bad} codes differ, or the row max")
+                    single = K.quant_pack_amax_tiles if fmt is E4M3 else K.quant_pack_sub_amax_tiles
+                    again = K.quant_pack_amax_many(x3, a_one, keys, fmt)
+                    check(torch.equal(again[0], c) and torch.equal(again[1], m)
+                          and all(all(torch.equal(u, w) for u, w in zip(
+                              single(x3[i], a_one[i], ks[i], fmt), (c[i], m[i])))
+                              for i in range(COHORT)),
+                          f"quant_pack_amax_many {lab}: != a second call or single launches")
+        print(f"[kernels] quant_pack_sub_many / unpack_sub_many / quant_pack_amax_many {label} "
+              f"({COHORT}, {x2.shape[0]}, 1024): both FP4 formats (E4M3 and E2M1 amax), det "
+              f"and rand, alpha column and per element: ok")
     for label, w2, col in planes:
         a3 = _grid_alphas(col, UQP_GRID)
         for keys in (None, qat_probe.key_rows(UQP_GRID, dev, 61)):
@@ -724,11 +770,14 @@ def cohort_launch_cases(dev, K, R, format_planes, planes, key, worst) -> int:
 
 def cohort_timing_cases(K, R, x2, col) -> dict:
     """Timing cases of the batched launches at LeNet's plane ``x2`` (its
-    alpha column ``col``), as the main paths launch them: B8 a cohort of 3,
-    B5 the 20 grid points; ``name: (kernel, twin, bytes, operations,
-    shape)``. Bytes: x read once (4 B an element of each plane), codes
-    written (half a byte) or values (4 B an element a slice), the alphas (4
-    B a row a slice) and the keys (8 B a slice)."""
+    alpha column ``col``), as the main paths launch them: B8's encode and
+    decode and B9's amax encodes a cohort of 3 (the amax encode at one
+    shared column, as the scaled uplink), B5 the 20 grid points; ``name:
+    (kernel, twin, bytes, operations, shape)``. Bytes: x or codes read once
+    (4 B or half a byte an element of each plane), codes written (half a
+    byte or 1 B) or values (4 B an element a slice), the alphas (4 B a row a
+    slice; the shared column once), the row maxima (4 B a row a slice) and
+    the keys (8 B a slice)."""
     import qat_probe
     from repro_torch.core.fp8 import FP4_E2M1
 
@@ -737,6 +786,8 @@ def cohort_timing_cases(K, R, x2, col) -> dict:
     k3 = qat_probe.key_rows(COHORT, x2.device, 62)
     kg = qat_probe.key_rows(UQP_GRID, x2.device, 63)
     n, rows = x2.numel(), x2.shape[0]
+    codes3 = K.quant_pack_sub_many(x3, c3, k3)
+    shared = col.expand(COHORT, *col.shape)
     return {
         "quant_pack_sub_tiles": (lambda: K.quant_pack_sub_many(x3, c3, k3),
                                  lambda: R.quant_pack_sub_tiles_many(x3, c3, k3, FP4_E2M1),
@@ -746,6 +797,18 @@ def cohort_timing_cases(K, R, x2, col) -> dict:
                              lambda: R.fake_quant_tiles_many(x2, a3, kg),
                              4 * n + UQP_GRID * (4 * n + 4 * rows + 8), UQP_GRID * 40 * n,
                              (UQP_GRID, *x2.shape)),
+        "unpack_sub_tiles": (lambda: K.unpack_sub_many(codes3, c3),
+                             lambda: R.unpack_sub_tiles_many(codes3, c3, FP4_E2M1),
+                             COHORT * (4.5 * n + 4 * rows), COHORT * 12 * n, tuple(x3.shape)),
+        "quant_pack_amax_tiles": (lambda: K.quant_pack_amax_many(x3, shared, k3),
+                                  lambda: R.quant_pack_amax_tiles_many(x3, shared, k3),
+                                  COHORT * (5 * n + 4 * rows + 8) + 4 * rows, COHORT * 41 * n,
+                                  tuple(x3.shape)),
+        "quant_pack_sub_amax_tiles": (lambda: K.quant_pack_amax_many(x3, shared, k3, FP4_E2M1),
+                                      lambda: R.quant_pack_amax_tiles_many(x3, shared, k3,
+                                                                           FP4_E2M1),
+                                      COHORT * (4.5 * n + 4 * rows + 8) + 4 * rows,
+                                      COHORT * 41 * n, tuple(x3.shape)),
     }
 
 
@@ -1062,6 +1125,19 @@ PATH_KERNELS = {
 WIRE_KERNELS = ("quant_pack_tiles", "unpack_tiles", "fake_quant_tiles", "quant_pack_sub_tiles",
                 "unpack_sub_tiles", "quant_pack_amax_tiles", "quant_pack_sub_amax_tiles",
                 "fake_quant_amax_tiles")
+# their launches summed over every path of phases 4-8. FP4 legs run 1 + 1
+# decode launches a round (the downlink's plane, then the cohort's uplink
+# planes together) and delayed legs 1 + 1 amax encodes: unpack_sub_tiles
+# 6 MLP format cells x 25 rounds x 2 + 3 LeNet cells x 3 x 2 = 318, 5 pareto
+# FP4 cells x 25 x 2 + the LeNet fp4|ef+rans cell 3 x 2 = 256;
+# quant_pack_amax_tiles delayed:4 and delayed:16:1 2 x 25 x 2 +
+# frozen_down+delayed_up 25 + LeNet e4m3 delayed:4 3 x 2 = 131;
+# quant_pack_sub_amax_tiles LeNet fp4_e2m1 delayed:4 3 x 2 = 6
+WIRE_LAUNCH_TOTALS = {
+    "quant_pack_tiles": 1989, "unpack_tiles": 2276, "fake_quant_tiles": 378,
+    "quant_pack_sub_tiles": 568, "unpack_sub_tiles": 574, "quant_pack_amax_tiles": 131,
+    "quant_pack_sub_amax_tiles": 6, "fake_quant_amax_tiles": 1,
+}
 
 
 def launches_by_path(uq, uqp, grid, fmt, lm, trainer, b9) -> dict:
@@ -1368,16 +1444,33 @@ def _check_pareto_row(r: dict, kw: dict, launches: dict, rounds: int) -> None:
     _check_cell_launches(name, kw, launches, rounds)
 
 
+def _leg_counts(kw: dict) -> dict:
+    """The wire kernels that run exactly once a leg a round, each the legs
+    that run it: the FP4 decode on every FP4 leg (under delta, EF or rANS
+    too; the downlink's plane, then the cohort's uplink planes together),
+    each amax encode on every delayed leg of its format (likewise)."""
+    if kw.get("comm_mode") == "none":
+        return {}
+    out = {"quant_pack_sub_tiles": _fp4_encode_legs(kw), "unpack_sub_tiles": 0,
+           "quant_pack_amax_tiles": 0, "quant_pack_sub_amax_tiles": 0}
+    for leg in ("down", "up"):
+        fp4 = "fp4" in str(kw.get(f"{leg}_codec") or "")
+        out["unpack_sub_tiles"] += fp4
+        if str(kw.get(f"{leg}_scaling") or "").startswith("delayed"):
+            out["quant_pack_sub_amax_tiles" if fp4 else "quant_pack_amax_tiles"] += 1
+    return out
+
+
 def _check_cell_launches(label: str, kw: dict, launches: dict, rounds: int) -> None:
     must, never = _cell_kernels(kw)
     for name in must:
         check(launches[name] > 0, f"{label}: kernel {name} was not launched")
     for name in never:
         check(launches[name] == 0, f"{label}: kernel {name} launched {launches[name]} times")
-    want = rounds * _fp4_encode_legs(kw)
-    check(launches["quant_pack_sub_tiles"] == want,
-          f"{label}: quant_pack_sub_tiles launched {launches['quant_pack_sub_tiles']} times "
-          f"in {rounds} rounds, not {want} (once an FP4 leg a round)")
+    for name, legs in _leg_counts(kw).items():
+        check(launches[name] == rounds * legs,
+              f"{label}: {name} launched {launches[name]} times in {rounds} rounds, not "
+              f"{rounds * legs} (once a leg that runs it a round)")
 
 
 def format_phase(dev) -> dict:
@@ -2589,6 +2682,9 @@ def main() -> int:
                      "by_path": {p: v[name] for p, v in by_path.items() if v[name]}}
               for name in WIRE_KERNELS}
     print(f"[launches] wire kernels over every path of phases 4-8: {json.dumps(totals)}")
+    for name, want in WIRE_LAUNCH_TOTALS.items():
+        check(totals[name]["all_paths"] == want,
+              f"[launches] {name}: {totals[name]['all_paths']} over every path, not {want}")
 
     rows = []
     for name in K.KERNELS:
@@ -2650,7 +2746,7 @@ def main() -> int:
                          name + "_kernel")}
             if name in MIRRORS:
                 extra["mirrors"] = MIRRORS[name]
-        if name in ("quant_pack_sub_tiles", "fake_quant_tiles"):
+        if "batched" in kern["timings"].get(name, {}):
             extra["batched"] = kern["timings"][name]["batched"]
         rows.append({
             "name": name, "route": "cuda",

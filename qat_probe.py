@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """What bounds the QAT kernels B1/B2, the stochastic pair B6, the FP8 wire
-pair B3/B4, and B8's and B5's batched launches on the card.
+pair B3/B4, and the batched launches of B8, B5 and B9's amax encode on the
+card.
 
-Run from the repository root:  python3 qat_probe.py [--src DIR] [--b6 | --wire | --sub-fq]
+Run from the repository root:
+python3 qat_probe.py [--src DIR] [--b6 | --wire | --sub-fq | --sub-dec]
 
 At the one-device trainer's bf16 activation shapes (batch 8 x 128 tokens:
 (8, 128, 2048), (8, 128, 5632), and a CE chunk's (8, 16, 2048)), at f32
@@ -74,6 +76,24 @@ wrapper launches a call and the bytes bound of the batched work (x read
 once, codes or values written once, alphas and keys), and counts the codes
 or values that differ from this checkout's twins. Then the UQ+ server step
 on LeNet's plane, host ms (:func:`server_step_ms`).
+
+With ``--sub-dec``, only B8's FP4 decode and B9's amax encode as the port's
+uplinks call them (:func:`sub_dec_cases`), at (P, R, 1024) for (P, R) in
+(1, 9), (3, 9), (1, 135), (3, 135) and (1, 8191), det and rand, alpha as
+an (R, 1) column and as (R, 1024): B8's decode of E2M1 and E3M0 codes
+(made by the same rounding), each plane at its own clips; the amax encode at
+K = 1 (E4M3) and K = 2 (E2M1), every plane at one slice of clips expanded
+over P (``WireLink.up_scaled``'s shared effective scales). A call is one
+batched launch (``unpack_sub_many``, ``quant_pack_amax_many``), or where
+the package has none (``--src`` of an older checkout) the P single-plane
+launches its callers made. Each case prints device us a call (profiler),
+host ms a call, the wrapper launches a call and the bytes bound of the
+batched work (codes or x read once, values or codes and row maxima written
+once, alphas and keys), and counts the values, codes and row maxima that
+differ from this checkout's twins. At P = 1 the single-plane wrappers
+(``unpack_sub_tiles``, ``quant_pack_amax_tiles`` /
+``quant_pack_sub_amax_tiles``) are timed too, on the same plane (device us
+and host ms a call).
 
 ``--b6`` runs only the B6 part. With ``--src DIR`` it times the kernels of
 the package under ``DIR/src`` instead (for example an unpacked parent
@@ -833,6 +853,127 @@ def sub_fq_cases(dev, K, R, verbose: bool = True) -> dict:
     return res
 
 
+SUB_DEC_SHAPES = ((1, 9), (3, 9), (1, 135), (3, 135), (1, 8191))   # (P, R)
+
+
+def _dec_case(K, R, c3, a3, fmt, batched) -> tuple:
+    """B8's decode call on ``(c3, a3)`` and its values' differences from
+    this checkout's twin."""
+    if batched:
+        def call():
+            return K.unpack_sub_many(c3, a3, fmt)
+    else:
+        def call():
+            return [K.unpack_sub_tiles(c3[p], a3[p], fmt) for p in range(c3.shape[0])]
+    vals = call()
+    bad = sum(_differ(vals[p], R.unpack_sub_tiles(c3[p], a3[p], fmt))
+              for p in range(c3.shape[0]))
+    return call, bad
+
+
+def _amax_case(K, R, x3, a3, keys, fmt, batched) -> tuple:
+    """B9's amax encode call on ``(x3, a3, keys)`` and its codes' and row
+    maxima's differences from this checkout's twins."""
+    fp8 = fmt.bits == 8
+    if batched:
+        def call():
+            return K.quant_pack_amax_many(x3, a3, keys, fmt)
+    else:
+        single = K.quant_pack_amax_tiles if fp8 else K.quant_pack_sub_amax_tiles
+
+        def call():
+            out = [single(x3[p], a3[p], None if keys is None else keys[p], fmt)
+                   for p in range(x3.shape[0])]
+            return [c for c, _ in out], [m for _, m in out]
+    codes, rowmax = call()
+    twin = R.quant_pack_amax_tiles if fp8 else R.quant_pack_sub_amax_tiles
+    bad = 0
+    for p in range(x3.shape[0]):
+        wc, wm = twin(x3[p], a3[p], None if keys is None else keys[p], fmt)
+        bad += _differ(codes[p], wc) + _differ(rowmax[p], wm)
+    return call, bad
+
+
+def sub_dec_cases(dev, K, R, verbose: bool = True) -> dict:
+    """B8's cohort decode and B9's cohort amax encode as the port's uplinks
+    call them (module docstring, ``--sub-dec``). Where ``K`` has the batched
+    entries (``unpack_sub_many``, ``quant_pack_amax_many``) a call is one of
+    them; else it is the P single-plane launches the parent's callers made.
+    Each call's output is held against this checkout's twins, bitwise."""
+    import torch
+
+    from repro_torch.core.fp8 import E4M3, FP4_E2M1, FP4_E3M0
+
+    batched = hasattr(K, "unpack_sub_many") and hasattr(K, "quant_pack_amax_many")
+    g = torch.Generator().manual_seed(26)
+    res = {"batched": batched, "b8_dec": {}, "b9_amax": {}, "b8_dec_single": {},
+           "b9_amax_single": {}}
+    for P, rows in SUB_DEC_SHAPES:
+        x3 = (torch.randn((P, rows, 1024), generator=g) * 0.2).to(dev)
+        x3[:, -1, 517:] = 0.0                                   # an odd leaf's tail
+        col3 = x3.abs().amax(dim=2, keepdim=True) * 0.9
+        for layout, a3 in (("column", col3), ("full", col3.expand(x3.shape).contiguous())):
+            for rnd, keys in (("det", None), ("rand", key_rows(P, dev, rows + P))):
+                for fmt in (FP4_E2M1, FP4_E3M0):
+                    c3 = R.quant_pack_sub_tiles_many(x3, a3, keys, fmt)
+                    call, bad = _dec_case(K, R, c3, a3, fmt, batched)
+                    n_bytes = c3.numel() + 4 * a3.numel() + 4 * x3.numel()
+                    case = f"({P}, {rows}, 1024) {layout} {rnd} E{fmt.exp}M{fmt.mant}"
+                    r = {**_timed(call, K.LAUNCHES),
+                         "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6, "bad": bad}
+                    res["b8_dec"][case] = r
+                    if verbose:
+                        print(f"[sub-dec] B8 decode {case}: device {r['device_us']:.3f} us, host "
+                              f"{r['call_ms'] * 1e3:.2f} us a call, {r['launches']} launches, "
+                              f"bound {r['bound_us']:.3f} us, {bad} values differ")
+                    if P == 1:
+                        c2, a2 = c3[0], a3[0]
+                        call, bad = _dec_case(K, R, c2[None], a2[None], fmt, False)
+                        r = {**_timed(lambda: K.unpack_sub_tiles(c2, a2, fmt), K.LAUNCHES),
+                             "bad": bad}
+                        res["b8_dec_single"][case] = r
+                        if verbose:
+                            print(f"[sub-dec] B8 decode single {case}: device "
+                                  f"{r['device_us']:.3f} us, host {r['call_ms'] * 1e3:.2f} us "
+                                  f"a call, {bad} values differ")
+                # the amax encode: every plane at one slice of clips, expanded over P
+                a_one = a3[:1].expand(a3.shape)
+                for fmt in (E4M3, FP4_E2M1):
+                    call, bad = _amax_case(K, R, x3, a_one, keys, fmt, batched)
+                    k = 8 // fmt.bits
+                    n_bytes = (4 * x3.numel() + x3.numel() // k + 4 * a3[0].numel()
+                               + 4 * P * rows + (8 * P if keys is not None else 0))
+                    case = f"({P}, {rows}, 1024) {layout} {rnd} K={k}"
+                    r = {**_timed(call, K.LAUNCHES),
+                         "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6, "bad": bad}
+                    res["b9_amax"][case] = r
+                    if verbose:
+                        print(f"[sub-dec] B9 amax {case}: device {r['device_us']:.3f} us, host "
+                              f"{r['call_ms'] * 1e3:.2f} us a call, {r['launches']} launches, "
+                              f"bound {r['bound_us']:.3f} us, {bad} codes or maxima differ")
+                    if P == 1:
+                        single = (K.quant_pack_amax_tiles if fmt.bits == 8
+                                  else K.quant_pack_sub_amax_tiles)
+                        x2, a2 = x3[0], a_one[0]
+                        k2 = None if keys is None else keys[0]
+                        call, bad = _amax_case(K, R, x2[None], a2[None],
+                                               None if k2 is None else k2[None], fmt, False)
+                        r = {**_timed(lambda: single(x2, a2, k2, fmt), K.LAUNCHES), "bad": bad}
+                        res["b9_amax_single"][case] = r
+                        if verbose:
+                            print(f"[sub-dec] B9 amax single {case}: device "
+                                  f"{r['device_us']:.3f} us, host {r['call_ms'] * 1e3:.2f} us "
+                                  f"a call, {bad} codes or maxima differ")
+        del x3, col3
+    res["all_bitwise"] = all(r["bad"] == 0 for part in ("b8_dec", "b9_amax", "b8_dec_single",
+                                                        "b9_amax_single")
+                             for r in res[part].values())
+    res["profiler_fallbacks"] = len(FALLBACKS)
+    if verbose:
+        print(f"[sub-dec] every call bitwise this checkout's twins: {res['all_bitwise']}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -859,6 +1000,8 @@ def main() -> int:
         res = {"wire": measure_wire(dev, K, R)}
     elif "--sub-fq" in sys.argv[1:]:
         res = {"sub_fq": sub_fq_cases(dev, K, R)}
+    elif "--sub-dec" in sys.argv[1:]:
+        res = {"sub_dec": sub_dec_cases(dev, K, R)}
     else:
         res = {} if "--b6" in sys.argv[1:] else measure(dev, K)
         res["b6"] = measure_b6(dev)

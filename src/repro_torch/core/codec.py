@@ -7,6 +7,9 @@ A ``WireCodec`` owns one leg's compression and its byte accounting:
   compressed weight buffer (its length is the codec's business), ``other``
   the FP32 riders;
 * ``decode(payload, spec, ref=None)`` — the tree a receiver rebuilds;
+* ``encode_many`` / ``decode_many`` — the same for a cohort's payloads,
+  each bitwise its single call's; the FP4 codecs take a chunk of clients in
+  one launch each way;
 * ``payload_nbytes(spec)`` / ``code_nbytes(spec)`` — exact bytes of one
   model copy / of its codes alone; ``tag`` is the registry name;
 * ``payload_nbytes_traced(payload, spec)`` — the bytes of one concrete
@@ -38,8 +41,9 @@ uplink only, driven by the engine through ``up_transit``).
 The grid codecs also take explicit scales (``encode_scaled`` /
 ``decode_scaled``) for the policies of ``core.scaling``: delayed scaling
 ships its effective scales as one ``(n_q,)`` rider and takes next round's
-amax from the encode launch (``with_amax=True``); frozen scaling drops the
-alpha riders and the receiver splices them back.
+amax from the encode launch (``encode_scaled_many``: a chunk of clients,
+or the broadcast, in one launch); frozen scaling drops the alpha riders and
+the receiver splices them back.
 
 :func:`get_codec` resolves registry names (``e4m3``, ``e5m2_det``, ``fp4``
 = ``fp4_e2m1``, ``fp4_e3m0``, ``delta:<inner>``, ``rans:<inner>``,
@@ -89,6 +93,14 @@ class WireCodec:
         words: one payload a client, each its :meth:`encode`'s. Here one
         encode a client; the FP4 codecs encode the cohort in one launch."""
         return [self.encode(p, spec, k, ref=ref) for p, k in zip(params_list, keys)]
+
+    def decode_many(self, payloads: list[dict], spec: wire.WireSpec,
+                    ref: dict | None = None, codes: torch.Tensor | None = None) -> list[dict]:
+        """:meth:`decode` of a cohort's payloads: one tree a client, each its
+        :meth:`decode`'s. ``codes``, where the caller holds them so, is the
+        payloads' codes as one ``(P, n)`` stack. Here one decode a client;
+        the FP4 codecs decode a chunk of clients in one launch."""
+        return [self.decode(p, spec, ref=ref) for p in payloads]
 
     def payload_nbytes(self, spec: wire.WireSpec) -> int:
         raise NotImplementedError
@@ -162,16 +174,14 @@ class Fp8Codec(WireCodec):
         return key2 if self.rounding == "rand" else None
 
     # --- explicit-scale encode/decode (core.scaling policies) -------------
-    def encode_scaled(self, params, spec, key2, alphas, *,
-                      drop_alphas: bool = False, with_amax: bool = False):
+    def encode_scaled(self, params, spec, key2, alphas, *, drop_alphas: bool = False):
         """Encode at an explicit ``(n_q,)`` scale vector instead of the
         tree's trained alphas (floored at ``fp8._ALPHA_FLOOR``).
 
         By default ``alphas`` rides as one extra ``(n_q,)`` FP32 rider
         (delayed scaling); ``drop_alphas=True`` removes the alpha riders
-        from ``other`` (frozen scaling, -4 B per quantized leaf).
-        ``with_amax=True`` also returns the per-leaf raw amax of this
-        encode, from the same launch (``quant_pack_amax_tiles``).
+        from ``other`` (frozen scaling, -4 B per quantized leaf). The same
+        encode with the per-leaf raw amax is :meth:`encode_scaled_many`.
         """
         leaves = tree.leaves(params)
         other = tuple(leaves[i] for i in spec.other_slots)
@@ -180,11 +190,31 @@ class Fp8Codec(WireCodec):
             other = tuple(o for oi, o in enumerate(other) if oi not in hidden)
         else:
             other = other + (f32(alphas).reshape(-1),)
-        out = wire.pack(wire.weight_tiles(leaves, spec), wire.alpha_column(alphas, spec),
-                        self.key(key2), spec, self.fmt, with_amax=with_amax)
-        if with_amax:
-            return {"codes": out[0], "other": other}, out[1]
-        return {"codes": out, "other": other}
+        codes = wire.pack(wire.weight_tiles(leaves, spec), wire.alpha_column(alphas, spec),
+                          self.key(key2), spec, self.fmt)
+        return {"codes": codes, "other": other}
+
+    def encode_scaled_many(self, params_list, spec, keys, alphas):
+        """:meth:`encode_scaled` of a chunk of clients' models (the uplink's,
+        or the one broadcast) at one ``(n_q,)`` scale vector, ``keys`` their
+        ``(P, 2)`` words, with each model's per-leaf raw amax for delayed
+        scaling: ``(payloads, amax (P, n_q))`` from one amax encode launch
+        (``quant_pack_amax_many``; the clip column expanded over the chunk,
+        not copied), each payload bitwise :meth:`encode_scaled`'s."""
+        leaves = [tree.leaves(p) for p in params_list]
+        x3 = torch.stack([wire.weight_tiles(lv, spec) for lv in leaves])
+        a_col = wire.alpha_column(alphas, spec)
+        codes, amax = wire.encode_amax_many(x3, a_col.expand(len(leaves), *a_col.shape),
+                                            self.key(keys), spec, self.fmt)
+        rider = f32(alphas).reshape(-1)
+        return [{"codes": c, "other": tuple(lv[i] for i in spec.other_slots) + (rider,)}
+                for c, lv in zip(codes, leaves)], amax
+
+    def decode_scaled_many(self, payloads, spec):
+        """:meth:`decode_scaled` of a cohort's payloads that ship their scale
+        vector (delayed scaling). Here one decode a client; the FP4 codec
+        decodes a chunk of clients in one launch."""
+        return [self.decode_scaled(p, spec) for p in payloads]
 
     def decode_scaled(self, payload, spec, *, alphas=None, dropped: bool = False):
         """Decode an :meth:`encode_scaled` payload: the scale vector is the
@@ -232,6 +262,27 @@ class PackedFpCodec(Fp8Codec):
     def tag(self) -> str:
         t = f"fp{self.fmt.bits}_e{self.fmt.exp}m{self.fmt.mant}"
         return t if self.rounding == "rand" else t + "_det"
+
+    def decode_many(self, payloads, spec, ref=None, codes=None):
+        """The cohort's decodes in one ``unpack_sub_many`` launch a chunk of
+        clients (``wire.assemble_many``), each client's clip tiles its own
+        alpha riders'; bitwise :meth:`decode` of each."""
+        if not spec.q_slots:
+            return super().decode_many(payloads, spec, ref=ref)
+
+        def clips(chunk):
+            others = [tuple(pl["other"]) for pl in chunk]
+            return others, wire.alpha_tiles_many(others, spec)
+
+        return wire.assemble_many(payloads, clips, spec, self.fmt, codes=codes)
+
+    def decode_scaled_many(self, payloads, spec):
+        """A cohort's delayed-scaling payloads in one ``unpack_sub_many``
+        launch a chunk of clients, each at its own shipped scale vector;
+        bitwise :meth:`decode_scaled` of each."""
+        if not spec.q_slots:
+            return super().decode_scaled_many(payloads, spec)
+        return wire.assemble_many(payloads, _last_rider_clips(spec), spec, self.fmt)
 
     def encode_many(self, params_list, spec, keys, ref=None):
         """The cohort's encodes in one ``quant_pack_sub_many`` launch (a
@@ -327,12 +378,36 @@ class DeltaCodec(WireCodec):
         return wire.assemble(payload["codes"], other, wire.alpha_column(d_alpha, spec),
                              spec, self.inner.fmt, ref=ref)
 
+    def decode_many(self, payloads, spec, ref=None, codes=None):
+        """Over an FP4 inner, the cohort's residuals in one ``unpack_sub_many``
+        launch a chunk of clients, each at its own clips (its last rider);
+        bitwise :meth:`decode` of each. Over an FP8 inner, one decode a
+        client."""
+        if not (spec.q_slots and isinstance(self.inner, PackedFpCodec)):
+            return super().decode_many(payloads, spec, ref=ref)
+        if ref is None:
+            raise ValueError("DeltaCodec.decode needs ref= (see encode)")
+        return wire.assemble_many(payloads, _last_rider_clips(spec), spec, self.inner.fmt,
+                                  ref=ref, codes=codes)
+
     def payload_nbytes(self, spec):
         # inner codes + model riders + one fresh f32 clip scalar per leaf
         return self.inner.payload_nbytes(spec) + 4 * len(spec.q_slots)
 
     def code_nbytes(self, spec):
         return self.inner.code_nbytes(spec)
+
+
+def _last_rider_clips(spec: wire.WireSpec):
+    """``wire.assemble_many``'s ``clips`` for payloads whose last FP32 rider
+    is their ``(n_q,)`` clip vector (a delta residual's clips, or delayed
+    scaling's shipped scales): the other riders, and the clip columns."""
+    def clips(chunk):
+        riders = [tuple(pl["other"]) for pl in chunk]
+        a = torch.stack([f32(r[-1]).reshape(-1) for r in riders])
+        return [r[:-1] for r in riders], wire.alpha_columns(a, spec)
+
+    return clips
 
 
 # ---------------------------------------------------------------------------

@@ -109,10 +109,11 @@ class ErrorFeedbackCodec(WireCodec):
         messages the server aggregates, the updated rows, and the inner
         payloads (read for a dynamic inner's traced bytes). Each client is
         compensated, then the cohort grid-coded through the grid codec's
-        :meth:`~repro_torch.core.codec.WireCodec.encode_many` (an FP4 grid:
-        one launch); a :class:`RansCodec` inner then range-codes the cohort
-        in one launch each way (:meth:`RansCodec.cohort_transit`). Bitwise a
-        client at a time."""
+        :meth:`~repro_torch.core.codec.WireCodec.encode_many` and
+        :meth:`~repro_torch.core.codec.WireCodec.decode_many` (an FP4 grid:
+        one launch each way); a :class:`RansCodec` inner range-codes the
+        cohort between them in one launch each way
+        (:meth:`RansCodec.cohort_transit`). Bitwise a client at a time."""
         rans = isinstance(self.inner, RansCodec)
         comps = [add_resid(p, e, spec) for p, e in zip(client_params, e_sel)]
         flat = [flatten_q(comp, spec) for comp in comps]
@@ -121,7 +122,7 @@ class ErrorFeedbackCodec(WireCodec):
         if rans:
             msgs, payloads = self.inner.cohort_transit(inner, spec)
         else:
-            msgs, payloads = [self.inner.decode(pl, spec) for pl in inner], inner
+            msgs, payloads = self.inner.decode_many(inner, spec), inner
         new_e = [f - flatten_q(m, spec) for f, m in zip(flat, msgs)]
         return msgs, torch.stack(new_e), payloads
 

@@ -379,12 +379,13 @@ class WireLink:
         """Cohort -> server, one independent payload per client: ``(msgs,
         per_client_nbytes)``; ``ref`` is the round's reference model (the
         decoded broadcast). Consumes ``client_params`` (see :func:`_drain`).
-        The cohort is encoded a chunk of clients at a time
+        The cohort is encoded and decoded a chunk of clients at a time
         (``plane.stack_chunk``: the whole cohort of a small model, one
-        client of an LM), an FP4 codec's chunk in one launch
-        (:meth:`~repro_torch.core.codec.WireCodec.encode_many`), then each
-        payload decoded. An entropy-coded uplink inner-encodes the cohort so,
-        then range-codes its code streams in one launch each way
+        client of an LM), an FP4 codec's chunk in one launch each way
+        (:meth:`~repro_torch.core.codec.WireCodec.encode_many`,
+        :meth:`~repro_torch.core.codec.WireCodec.decode_many`). An
+        entropy-coded uplink inner-encodes the cohort so, then range-codes
+        its code streams in one launch each way and inner-decodes them
         (:meth:`~repro_torch.core.entropy.RansCodec.cohort_transit`)."""
         c = self.up_c
         if not (c.quantized and spec.q_slots):
@@ -397,9 +398,9 @@ class WireLink:
         msgs, nbytes = [], []
         for chunk in _drain(client_params, plane.stack_chunk(spec.n_rows)):
             ks = keys[len(msgs):len(msgs) + len(chunk)]
-            for pl in c.encode_many(chunk, spec, ks, ref=ref):
-                msgs.append(c.decode(pl, spec, ref=ref))
-                nbytes.append(c.payload_nbytes_traced(pl, spec))
+            payloads = c.encode_many(chunk, spec, ks, ref=ref)
+            msgs += c.decode_many(payloads, spec, ref=ref)
+            nbytes += [c.payload_nbytes_traced(pl, spec) for pl in payloads]
         return msgs, nbytes
 
     def up_ef(self, client_params: list[dict], spec: wire.WireSpec,
@@ -433,27 +434,32 @@ class WireLink:
             alphas = scaling_lib.leaf_alphas(params, spec)
             payload = c.encode_scaled(params, spec, key2, alphas, drop_alphas=True)
             return c.decode_scaled(payload, spec, alphas=alphas, dropped=True), st
-        payload, amax = c.encode_scaled(params, spec, key2, pol.effective(st),
-                                        with_amax=True)
-        return c.decode_scaled(payload, spec), pol.update(st, amax)
+        payloads, amax = c.encode_scaled_many([params], spec,
+                                              None if key2 is None else key2[None],
+                                              pol.effective(st))
+        return c.decode_scaled(payloads[0], spec), pol.update(st, amax[0])
 
     def up_scaled(self, client_params: list[dict], spec: wire.WireSpec,
                   keys: torch.Tensor, st):
         """Scaled uplink: ``(msgs, up_amax)``. Every client encodes at the
         same effective scales (the server's history); ``up_amax`` is the
         ``(cohort, n_q)`` per-client amax for the caller's history update.
-        Consumes ``client_params`` (see :func:`_drain`)."""
+        A chunk of clients (``plane.stack_chunk``) is one amax encode launch
+        (:meth:`~repro_torch.core.codec.Fp8Codec.encode_scaled_many`), and on
+        an FP4 leg one decode launch. Consumes ``client_params`` (see
+        :func:`_drain`)."""
         c, pol = self.up_c, self.up_p
         if not spec.q_slots:
             P = len(client_params)
             return list(_drain(client_params)), st.new_zeros((P, 0))
         a_eff = pol.effective(st)
         msgs, amax = [], []
-        for p, k in zip(_drain(client_params), keys):
-            payload, am = c.encode_scaled(p, spec, k, a_eff, with_amax=True)
-            msgs.append(c.decode_scaled(payload, spec))
+        for chunk in _drain(client_params, plane.stack_chunk(spec.n_rows)):
+            ks = keys[len(msgs):len(msgs) + len(chunk)]
+            payloads, am = c.encode_scaled_many(chunk, spec, ks, a_eff)
+            msgs += c.decode_scaled_many(payloads, spec)
             amax.append(am)
-        return msgs, torch.stack(amax)
+        return msgs, torch.cat(amax)
 
 
 class VmapExecutor:

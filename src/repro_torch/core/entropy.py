@@ -201,9 +201,11 @@ class RansCodec(WireCodec):
     def cohort_transit(self, inner_payloads: list[dict], spec, ref=None):
         """The rANS stage of a cohort's uplink: the inner codec's payloads
         (one a client, all of one length) range-coded in one encode launch
-        and decoded in one decode launch, then each inner-decoded against
-        ``ref``. Returns ``(msgs, payloads)``: the received trees and each
-        client's payload as :meth:`encode` gives it, bitwise those of
+        and decoded in one decode launch, then inner-decoded against ``ref``
+        straight from the decoded ``(P, n)`` symbols
+        (:meth:`~repro_torch.core.codec.WireCodec.decode_many`: an FP4 inner
+        in one launch). Returns ``(msgs, payloads)``: the received trees and
+        each client's payload as :meth:`encode` gives it, bitwise those of
         :meth:`encode` and :meth:`decode` one client at a time."""
         codes = torch.stack([p["codes"].reshape(-1) for p in inner_payloads])
         dev = codes.device
@@ -211,8 +213,9 @@ class RansCodec(WireCodec):
         buf, state, lens = dispatch.rans_encode_many(codes, freq, cum, self.enc_table(dev))
         syms = dispatch.rans_decode_many(buf, state, lens, self.inner.code_nbytes(spec), freq,
                                          cum, s2s)
-        msgs = [self.inner.decode({"codes": s, "other": p["other"]}, spec, ref=ref)
-                for s, p in zip(syms, inner_payloads)]
+        msgs = self.inner.decode_many([{"codes": s, "other": p["other"]}
+                                       for s, p in zip(syms, inner_payloads)], spec, ref=ref,
+                                      codes=syms)
         payloads = [{"codes": b.reshape(-1), "other": p["other"], "rans": (st, ln)}
                     for b, st, ln, p in zip(buf, state, lens, inner_payloads)]
         return msgs, payloads

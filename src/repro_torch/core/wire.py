@@ -20,7 +20,10 @@ reference draws the stochastic-rounding key words from a ``jax.random`` key
 
 The codecs of ``core.codec`` compose the tile-level steps below
 (:func:`pack`, :func:`assemble`) with their own clip columns: explicit
-scales for ``core.scaling``, the residual's clips for the delta codec.
+scales for ``core.scaling``, the residual's clips for the delta codec. A
+cohort's uplink takes the batched steps (:func:`encode_many`,
+:func:`encode_amax_many`, :func:`assemble_many`): one launch for a chunk of
+``plane.stack_chunk`` clients, bitwise the single steps of each.
 """
 from __future__ import annotations
 
@@ -104,9 +107,15 @@ def make_wire_spec(params: dict) -> WireSpec:
 
 def alpha_column(alphas: torch.Tensor, spec: WireSpec) -> torch.Tensor:
     """``(n_q,)`` per-leaf clipping scalars -> floored ``(n_rows, 1)`` column."""
-    a = torch.clamp(f32(alphas).reshape(-1), min=fp8._ALPHA_FLOOR)
-    return torch.repeat_interleave(a, torch.tensor(spec.q_rows, device=a.device)
-                                   ).reshape(-1, 1)
+    return alpha_columns(f32(alphas).reshape(1, -1), spec)[0]
+
+
+def alpha_columns(alphas: torch.Tensor, spec: WireSpec) -> torch.Tensor:
+    """A cohort's ``(P, n_q)`` per-leaf clipping scalars -> floored ``(P,
+    n_rows, 1)`` columns, each client's :func:`alpha_column`."""
+    a = torch.clamp(f32(alphas), min=fp8._ALPHA_FLOOR)
+    return torch.repeat_interleave(a, torch.tensor(spec.q_rows, device=a.device),
+                                   dim=1)[..., None]
 
 
 def alpha_tiles(other: tuple, spec: WireSpec) -> torch.Tensor:
@@ -120,6 +129,15 @@ def alpha_tiles(other: tuple, spec: WireSpec) -> torch.Tensor:
         for shape, ai in zip(spec.q_shapes, spec.alpha_pos)
     ]
     return tiles(parts, 1.0)
+
+
+def alpha_tiles_many(others: list, spec: WireSpec) -> torch.Tensor:
+    """Each client's :func:`alpha_tiles` from its riders, stacked: ``(P,
+    n_rows, 1 | LANE)``."""
+    if spec.alpha_cols_ok:
+        a = torch.stack([f32(o[ai]).reshape(()) for o in others for ai in spec.alpha_pos])
+        return alpha_columns(a.reshape(len(others), -1), spec)
+    return torch.stack([alpha_tiles(o, spec) for o in others])
 
 
 def code_sizes(spec: WireSpec, fmt: FP8Format = E4M3) -> list[int]:
@@ -139,29 +157,41 @@ def weight_tiles(leaves: list, spec: WireSpec) -> torch.Tensor:
 
 
 def segment_amax(rowmax: torch.Tensor, spec: WireSpec) -> torch.Tensor:
-    """Per-row ``|x|`` maxima -> per-quantized-leaf ``(n_q,)`` amax. Equal to
-    a per-leaf flat max: the zero fill never exceeds a row's abs-max and
-    float max is exact in any order."""
-    rm = rowmax.reshape(-1)
-    return torch.stack([torch.amax(rm[r0:r0 + rows])
-                        for r0, rows in zip(spec.q_row_offsets, spec.q_rows)])
+    """Per-row ``|x|`` maxima -> per-quantized-leaf ``(n_q,)`` amax; a
+    cohort's ``(P, n_rows, 1)`` -> ``(P, n_q)``. Equal to a per-leaf flat
+    max: the zero fill never exceeds a row's abs-max and float max is exact
+    in any order."""
+    rm = rowmax.reshape(rowmax.shape[0], -1) if rowmax.dim() == 3 else rowmax.reshape(-1)
+    return torch.stack([torch.amax(rm[..., r0:r0 + rows], dim=-1)
+                        for r0, rows in zip(spec.q_row_offsets, spec.q_rows)], dim=-1)
 
 
 def pack(x2: torch.Tensor, a2: torch.Tensor, key2: torch.Tensor | None,
-         spec: WireSpec, fmt: FP8Format, with_amax: bool = False):
+         spec: WireSpec, fmt: FP8Format) -> torch.Tensor:
     """Tiles -> the flat payload codes, one encode launch (``key2`` None is
-    deterministic rounding). ``with_amax=True`` takes the fused variant and
-    also returns the per-leaf raw ``max|x|`` of ``x2`` (delayed scaling)."""
-    sub = codes_per_byte(fmt) > 1
-    if with_amax:
-        kern = dispatch.quant_pack_sub_amax_tiles if sub else dispatch.quant_pack_amax_tiles
-        codes2, rowmax = kern(x2, a2, key2, fmt=fmt)
-    else:
-        kern = dispatch.quant_pack_sub_tiles if sub else dispatch.quant_pack_tiles
-        codes2 = kern(x2, a2, key2, fmt=fmt)
-    codes = torch.cat([codes2[r0:r0 + rows].reshape(-1)[:n] for r0, rows, n
-                       in zip(spec.q_row_offsets, spec.q_rows, code_sizes(spec, fmt))])
-    return (codes, segment_amax(rowmax, spec)) if with_amax else codes
+    deterministic rounding)."""
+    kern = dispatch.quant_pack_sub_tiles if codes_per_byte(fmt) > 1 else dispatch.quant_pack_tiles
+    return _payload_codes(kern(x2, a2, key2, fmt=fmt)[None], spec, fmt)[0]
+
+
+def _payload_codes(codes3: torch.Tensor, spec: WireSpec, fmt: FP8Format) -> list:
+    """Each client's payload codes out of a stack of code tiles."""
+    sizes = code_sizes(spec, fmt)
+    return [torch.cat([c2[r0:r0 + rows].reshape(-1)[:n] for r0, rows, n
+                       in zip(spec.q_row_offsets, spec.q_rows, sizes)]) for c2 in codes3]
+
+
+def code_tiles(codes: torch.Tensor, spec: WireSpec, fmt: FP8Format) -> torch.Tensor:
+    """A stack of ``(P, n)`` payload codes -> their ``(P, n_rows, LANE //
+    k)`` code tiles, zero-filled (the tile padding; an FP4 pad nibble is
+    already 0): one slice copy a quantized leaf."""
+    width = LANE // codes_per_byte(fmt)
+    c3 = torch.zeros((codes.shape[0], spec.n_rows * width), dtype=torch.uint8,
+                     device=codes.device)
+    for r0, off, n in zip(spec.q_row_offsets, itertools.accumulate(
+            code_sizes(spec, fmt), initial=0), code_sizes(spec, fmt)):
+        c3[:, r0 * width:r0 * width + n] = codes[:, off:off + n]
+    return c3.view(codes.shape[0], spec.n_rows, width)
 
 
 def pack_many(x3: torch.Tensor, a3: torch.Tensor, keys: torch.Tensor | None,
@@ -169,10 +199,18 @@ def pack_many(x3: torch.Tensor, a3: torch.Tensor, keys: torch.Tensor | None,
     """A cohort's stacked ``(P, R, LANE)`` tiles -> each client's payload
     codes, one sub-byte encode launch (``quant_pack_sub_many``; ``keys`` the
     ``(P, 2)`` words, None deterministic); bitwise :func:`pack` of each."""
-    codes3 = dispatch.quant_pack_sub_many(x3, a3, keys, fmt=fmt)
-    sizes = code_sizes(spec, fmt)
-    return [torch.cat([c2[r0:r0 + rows].reshape(-1)[:n] for r0, rows, n
-                       in zip(spec.q_row_offsets, spec.q_rows, sizes)]) for c2 in codes3]
+    return _payload_codes(dispatch.quant_pack_sub_many(x3, a3, keys, fmt=fmt), spec, fmt)
+
+
+def encode_amax_many(x3: torch.Tensor, a3: torch.Tensor, keys: torch.Tensor | None,
+                     spec: WireSpec, fmt: FP8Format):
+    """A chunk of clients' stacked ``(P, R, LANE)`` tiles at clip tiles
+    ``a3`` (one slice expanded over P is taken as it is) -> ``(each
+    client's payload codes, their per-leaf raw amax (P, n_q))``, one amax
+    encode launch (``quant_pack_amax_many``); each client's codes bitwise
+    its :func:`pack`'s, its amax the per-leaf max of its raw tiles."""
+    codes3, rowmax = dispatch.quant_pack_amax_many(x3, a3, keys, fmt=fmt)
+    return _payload_codes(codes3, spec, fmt), segment_amax(rowmax, spec)
 
 
 def encode_many(tiles_alphas, spec: WireSpec, keys: torch.Tensor | None,
@@ -199,24 +237,60 @@ def encode_many(tiles_alphas, spec: WireSpec, keys: torch.Tensor | None,
 def assemble(codes: torch.Tensor, other: tuple, a2: torch.Tensor | None,
              spec: WireSpec, fmt: FP8Format, ref: dict | None = None) -> dict:
     """Payload codes + FP32 riders -> the full param tree, one decode launch
-    at clip tiles ``a2``. With ``ref`` the codes are a residual: each decoded
-    leaf is added to ``ref``'s."""
+    at clip tiles ``a2`` (a sub-byte ``fmt``: :func:`assemble_many` of one
+    client). With ``ref`` the codes are a residual: each decoded leaf is
+    added to ``ref``'s."""
+    if not spec.q_slots:
+        return _tree(other, [], spec)
+    if codes_per_byte(fmt) > 1:
+        return assemble_many([{"codes": codes, "other": other}],
+                             lambda chunk: ([other], a2[None]), spec, fmt, ref=ref)[0]
+    vals2 = dispatch.unpack_tiles(code_tiles(codes[None], spec, fmt)[0], a2, fmt=fmt)
+    rleaves = None if ref is None else tree.leaves(ref)
+    q = []
+    for qi, slot in enumerate(spec.q_slots):
+        v = tiles_to_leaf(vals2, spec, qi)
+        q.append(v if rleaves is None else f32(rleaves[slot]) + v)
+    return _tree(other, q, spec)
+
+
+def _tree(other: tuple, q: list, spec: WireSpec) -> dict:
+    """The param tree of FP32 riders ``other`` and decoded quantized leaves ``q``."""
     out: list = [None] * spec.n_leaves
     for slot, leaf in zip(spec.other_slots, other):
         out[slot] = leaf
-    if spec.q_slots:
-        k = codes_per_byte(fmt)
-        offs = [0]
-        for n in code_sizes(spec, fmt):
-            offs.append(offs[-1] + n)
-        c2 = tiles([codes[o0:o1] for o0, o1 in zip(offs, offs[1:])], 0, LANE // k)
-        unpack = dispatch.unpack_sub_tiles if k > 1 else dispatch.unpack_tiles
-        vals2 = unpack(c2, a2, fmt=fmt)
-        rleaves = None if ref is None else tree.leaves(ref)
-        for qi, slot in enumerate(spec.q_slots):
-            v = tiles_to_leaf(vals2, spec, qi)
-            out[slot] = v if rleaves is None else f32(rleaves[slot]) + v
+    for slot, leaf in zip(spec.q_slots, q):
+        out[slot] = leaf
     return tree.unflatten(list(spec.names), out)
+
+
+def assemble_many(payloads: list[dict], clips, spec: WireSpec, fmt: FP8Format,
+                  ref: dict | None = None, codes: torch.Tensor | None = None) -> list[dict]:
+    """A cohort's payloads at a sub-byte ``fmt`` -> their param trees: one
+    ``unpack_sub_many`` launch a chunk of ``plane.stack_chunk`` clients,
+    each client's trees bitwise its :func:`assemble`'s. ``clips(chunk)``
+    gives a chunk of payloads' FP32 riders and their ``(p, n_rows, 1 |
+    LANE)`` clip tiles; ``codes``, where the caller holds them so, is the
+    payloads' codes as one ``(P, n)`` stack. The chunk's code tiles are
+    :func:`code_tiles` of its codes. With ``ref`` the codes are residuals:
+    each decoded leaf is added to ``ref``'s."""
+    out: list[dict] = []
+    step = plane.stack_chunk(spec.n_rows)
+    rleaves = None if ref is None else tree.leaves(ref)
+    for lo in range(0, len(payloads), step):
+        chunk = payloads[lo:lo + step]
+        c = (torch.stack([pl["codes"] for pl in chunk]) if codes is None
+             else codes[lo:lo + step])
+        others, a3 = clips(chunk)
+        vals3 = dispatch.unpack_sub_many(code_tiles(c, spec, fmt), a3, fmt=fmt)
+        q = []
+        for qi, slot in enumerate(spec.q_slots):
+            r0, rows, shape = spec.q_row_offsets[qi], spec.q_rows[qi], spec.q_shapes[qi]
+            v = vals3[:, r0:r0 + rows].reshape(len(chunk), -1)[:, :nelem(shape)].reshape(
+                len(chunk), *shape)
+            q.append(v if rleaves is None else f32(rleaves[slot]) + v)
+        out += [_tree(o, [v[i] for v in q], spec) for i, o in enumerate(others)]
+    return out
 
 
 def tiles_to_leaf(vals2: torch.Tensor, spec: WireSpec, qi: int) -> torch.Tensor:

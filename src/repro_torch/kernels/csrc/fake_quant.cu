@@ -36,8 +36,8 @@
 // the block's G clips, their biases log2f(alpha) and keys are staged once
 // in shared memory (256 slices at a time), not once an element a slice. B9
 // one 256-thread block per 1024-lane row, the row max reduced by
-// reduce.cuh's fixed fmaxf tree (exact in any order), as quant_pack_amax.cu
-// does. The uniform is made in registers, so no random operand is read.
+// reduce.cuh's fixed fmaxf tree (exact in any order), as the first port of
+// quant_pack_amax.cu did. The uniform is made in registers, so no random operand is read.
 #include "reduce.cuh"
 
 // One element: clip, exponent clamped at its largest code, round (to

@@ -416,9 +416,14 @@ __device__ __forceinline__ float decode_code(int code, float a, const Fmt& f) {
 
 constexpr int kWireFields = 256;   // exponent fields of a code of at most 8 bits
 
+// The table's entry at exponent field k, the row's bias b (B8's FP4 decode,
+// unpack.cu, builds its table from it too)
+__device__ __forceinline__ float wire_scale(int k, float b, const Fmt& f) {
+  return exp2f(((float)max(k, 1) - b) - (float)f.mant);
+}
+
 __device__ __forceinline__ void wire_row_scales(float* s, float b, const Fmt& f) {
-  for (int k = (int)(threadIdx.x & 31u); k < (1 << f.exp); k += 32)
-    s[k] = exp2f(((float)max(k, 1) - b) - (float)f.mant);
+  for (int k = (int)(threadIdx.x & 31u); k < (1 << f.exp); k += 32) s[k] = wire_scale(k, b, f);
 }
 
 // [sign|exp|mant] of v_signed = round(xc / s) at exponent p: pack_code's

@@ -1,7 +1,7 @@
 // Deterministic sum of a per-element term to one scalar, shared by the STE
 // backward kernels (quant_det_bwd.cu and quant_rand.cu, each in one launch;
 // the QAT products' clip cotangents in a second, qat_matmul.cu), and the
-// block max of the amax encodes (quant_pack_amax.cu).
+// block max of the amax encodes (fake_quant.cu, quant_pack_amax.cu).
 //
 // The TPU kernels accumulated the scalar clip cotangent in a (1, 1) block
 // across their sequential grid. Blocks here run in no order, so pass 1
@@ -41,7 +41,7 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
 }
 
 // The same fixed tree with fmaxf: exact in any order (the per-row amax of
-// quant_pack_amax.cu).
+// fake_quant.cu).
 __device__ __forceinline__ float block_max(float v, float* sh) {
   sh[threadIdx.x] = v;
   __syncthreads();
@@ -77,6 +77,22 @@ __device__ __forceinline__ float block_sum_shfl(float v, float* sh) {
     v = lane < kThreads / 32 ? sh[lane] : 0.0f;
 #pragma unroll
     for (int o = kThreads / 64; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  }
+  return v;
+}
+
+// The block's max of v: a shuffle max in each warp, then thread 0 over the
+// eight warp maxima; exact in any order, one barrier (the per-row amax of
+// quant_pack_amax.cu). Valid in thread 0. ``sh`` holds kThreads / 32 floats.
+__device__ __forceinline__ float block_max_shfl(float v, float* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) v = fmaxf(v, sh[w]);
   }
   return v;
 }

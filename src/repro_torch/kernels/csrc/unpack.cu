@@ -31,9 +31,26 @@
 // boundary takes the first port's kernel, one code a thread, grid-stride
 // (unpack_elem_kernel; quant_pack.cu's notes).
 //
-// unpack_sub_kernel (the FP4 decode): one thread per payload byte,
-// grid-stride, coalesced; it unfolds its byte (little-endian: code 2j in the
-// low nibble) and writes its k consecutive floats.
+// unpack_sub_kernel (the FP4 decode, K = 2 codes a byte; code 2j in the low
+// nibble of byte j): one plane, or a cohort's P uplink payloads stacked (P,
+// R, 1024 / K) with their alphas (P, R, 1 | 1024) in one launch, which the
+// reference's uplink vmaps over the cohort (src/repro/core/engine.py). The
+// slices are whole rows, so the stack decodes as P * R rows. The first port
+// ran one thread a byte, loaded alpha and called decode_code at every code:
+// a log2f and an exp2f a code, where a row's codes take only 2^e steps (4
+// for E2M1, 8 for E3M0). Now a 256-thread block takes a run of 256 payload
+// bytes (one a thread, its K codes consecutive; at most one row): first,
+// 2^e of its threads build the row's scale table in shared memory at the
+// alpha of the run's first element (wire_scale, wire_row_scales' entry:
+// decode_code's exp2f at each field, the same expression of the same
+// operands, so the same bits), while every thread's load of its byte is in
+// flight; one barrier; then each thread decodes every code whose alpha
+// equals the table's bitwise by one shared-memory load and a product
+// (decode_code_row; always on the column) and any other by decode_code, and
+// stores its K floats as one float2 / float4 (the (R, 1024) alphas 16-byte
+// aligned; the wrapper checks). One byte a thread was timed against two and
+// four (PERF.md section 6, PR 26): it was the fastest on every launch the
+// paths make, so it is the only width.
 #include "fp8_common.cuh"
 
 static constexpr int kWarps = fp8::kThreads / 32;
@@ -115,23 +132,81 @@ __global__ void unpack_elem_kernel(const uint8_t* __restrict__ c,
   }
 }
 
-// n_bytes payload bytes of k codes each; element e = byte * k + j
-__global__ void unpack_sub_kernel(const uint8_t* __restrict__ c,
-                                  const float* __restrict__ a2, int a_cols,
-                                  float* __restrict__ out, long long n_bytes,
-                                  int k, fp8::Fmt f) {
-  const int bits = 1 + f.exp + f.mant;
-  const int mask = (1 << bits) - 1;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_bytes; i += stride) {
-    const int byte = c[i];
-    for (int j = 0; j < k; ++j) {
-      const long long e = i * k + j;
-      const float a = a2[a_cols == 1 ? e / fp8::kLane : e];
-      out[e] = fp8::decode_code((byte >> (bits * j)) & mask, a, f);
+constexpr int kSubFields = 8;   // exponent fields of a sub-byte code: 2^e, e <= 3
+
+// N consecutive floats at p (N = 2: one float2; else float4s)
+template <int N>
+static __device__ __forceinline__ void load_floats(const float* __restrict__ p, float (&v)[N]) {
+  if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = t.x;
+      v[4 * i + 1] = t.y;
+      v[4 * i + 2] = t.z;
+      v[4 * i + 3] = t.w;
     }
   }
+}
+
+template <int N>
+static __device__ __forceinline__ void store_floats(float* __restrict__ p, const float (&v)[N]) {
+  if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                                                    v[4 * i + 3]);
+  }
+}
+
+// n_bytes payload bytes of K codes each over (n_bytes * K / 1024, 1024)
+// rows; code e of the stack is nibble e % K of byte e / K, its alpha
+// a[e / 1024] (COL) or a[e]
+template <int K, bool COL>
+__global__ void __launch_bounds__(fp8::kThreads) unpack_sub_kernel(
+    const uint8_t* __restrict__ c, const float* __restrict__ a, float* __restrict__ out,
+    long long n_bytes, fp8::Fmt f) {
+  constexpr int kBits = 8 / K;
+  constexpr uint32_t kMask = (1u << kBits) - 1u;
+  static_assert(fp8::kThreads * K <= fp8::kLane, "a block's codes lie in one row");
+  __shared__ float tab[kSubFields];   // the row's steps, by exponent field
+  __shared__ uint32_t held;           // the alpha bits the table was built at
+  const long long e0 = (long long)blockIdx.x * fp8::kThreads * K;
+  const long long e = e0 + (long long)threadIdx.x * K;   // the thread's first code
+  const bool mine = e < n_bytes * K;
+  // the thread's loads go out before the table is built
+  const uint32_t w = mine ? c[e / K] : 0u;
+  float av[COL ? 1 : K];
+  if constexpr (!COL) {
+    if (mine) load_floats<K>(a + e, av);
+  }
+  if ((int)threadIdx.x < (1 << f.exp)) {
+    const float ar = COL ? a[e0 / fp8::kLane] : a[e0];
+    if (threadIdx.x == 0) held = __float_as_uint(ar);
+    tab[threadIdx.x] = fp8::wire_scale((int)threadIdx.x, fp8::bias(ar, f), f);
+  }
+  __syncthreads();
+  if (!mine) return;
+  float v[K];
+  if constexpr (COL) {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      v[j] = fp8::decode_code_row((int)((w >> (kBits * j)) & kMask), tab, f);
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int code = (int)((w >> (kBits * j)) & kMask);
+      v[j] = __float_as_uint(av[j]) == held ? fp8::decode_code_row(code, tab, f)
+                                            : fp8::decode_code(code, av[j], f);
+    }
+  }
+  store_floats<K>(out + e, v);
 }
 
 // The 16-code kernel on one wave where fp8::wire_vector takes it (true when
@@ -167,12 +242,32 @@ extern "C" int repro_unpack_tiles(const uint8_t* c, const float* a2, int a_cols,
   return (int)cudaGetLastError();
 }
 
-extern "C" int repro_unpack_sub_tiles(const uint8_t* c, const float* a2,
-                                      int a_cols, float* out, long long n_bytes,
-                                      int k, int exp, int mant, float mant_const,
-                                      cudaStream_t stream) {
-  const fp8::Fmt f{exp, mant, mant_const};
-  unpack_sub_kernel<<<fp8::grid_for(n_bytes), fp8::kThreads, 0, stream>>>(
-      c, a2, a_cols, out, n_bytes, k, f);
+template <int K>
+static int launch_sub(const uint8_t* c, const float* a, bool col, float* out,
+                      long long n_bytes, const fp8::Fmt& f, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n_bytes + fp8::kThreads - 1) / fp8::kThreads);
+  if (col) {
+    unpack_sub_kernel<K, true><<<grid, fp8::kThreads, 0, stream>>>(c, a, out, n_bytes, f);
+  } else {
+    unpack_sub_kernel<K, false><<<grid, fp8::kThreads, 0, stream>>>(c, a, out, n_bytes, f);
+  }
   return (int)cudaGetLastError();
+}
+
+// n_bytes payload bytes of k codes each (a stack of whole (R, 1024 / k)
+// planes), alphas (R, 1) a plane (a_cols 1) or (R, 1024), stacked as the
+// codes are. k is 2 (FP4) or 4 (2-bit codes), and a code has at most 8
+// exponent fields; anything else is an error.
+extern "C" int repro_unpack_sub_many(const uint8_t* c, const float* a, int a_cols,
+                                     float* out, long long n_bytes, int k, int exp,
+                                     int mant, float mant_const, cudaStream_t stream) {
+  if ((1 << exp) > kSubFields || (n_bytes * k) % fp8::kLane != 0 ||
+      n_bytes / fp8::kThreads >= 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  if (n_bytes <= 0) return 0;
+  const fp8::Fmt f{exp, mant, mant_const};
+  const bool col = a_cols == 1;
+  if (k == 2) return launch_sub<2>(c, a, col, out, n_bytes, f, stream);
+  if (k == 4) return launch_sub<4>(c, a, col, out, n_bytes, f, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -291,6 +291,13 @@ def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor,
     return fp8_quant.unpack_sub_tiles(c2, a2, fmt)
 
 
+def unpack_sub_many(c3: torch.Tensor, a3: torch.Tensor,
+                    fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """:func:`unpack_sub_tiles` of a cohort's ``(P, R, LANE // k)`` code
+    planes, each with its own alphas, in one launch: ``(P, R, LANE)`` f32."""
+    return fp8_quant.unpack_sub_many(c3, a3, fmt)
+
+
 def quant_pack_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
                           key2: torch.Tensor | None = None,
                           fmt: FP8Format = E4M3):
@@ -304,6 +311,14 @@ def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
                               fmt: FP8Format = FP4_E2M1):
     """:func:`quant_pack_sub_tiles` + the per-row raw amax ``(R, 1)``."""
     return fp8_quant.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)
+
+
+def quant_pack_amax_many(x3: torch.Tensor, a3: torch.Tensor,
+                         keys: torch.Tensor | None = None, fmt: FP8Format = E4M3):
+    """The amax encode (FP8 or FP4 ``fmt``) of a cohort's ``(P, R, LANE)``
+    planes, each with its own ``(2,)`` key row, in one launch: ``(codes,
+    rowmax (P, R, 1))``; the alphas may be one slice expanded over P."""
+    return fp8_quant.quant_pack_amax_many(x3, a3, keys, fmt)
 
 
 def rans_encode(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,

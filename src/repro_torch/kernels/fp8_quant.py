@@ -14,9 +14,9 @@ their wrappers are in ``kernels.rans`` and ``kernels.fp8_matmul``):
 * ``quant_rand``                — ``csrc/quant_rand.cu``
 * ``quant_rand_bwd``            — ``csrc/quant_rand.cu``
 * ``quant_pack_sub_tiles``      — ``csrc/quant_pack_sub.cu`` (``quant_pack_sub_many``: P planes)
-* ``unpack_sub_tiles``          — ``csrc/unpack.cu``
-* ``quant_pack_amax_tiles``     — ``csrc/quant_pack_amax.cu``
-* ``quant_pack_sub_amax_tiles`` — ``csrc/quant_pack_amax.cu``
+* ``unpack_sub_tiles``          — ``csrc/unpack.cu`` (``unpack_sub_many``: P planes)
+* ``quant_pack_amax_tiles``     — ``csrc/quant_pack_amax.cu`` (``quant_pack_amax_many``: P planes)
+* ``quant_pack_sub_amax_tiles`` — ``csrc/quant_pack_amax.cu`` (the same, at FP4)
 * ``fake_quant_amax_tiles``     — ``csrc/fake_quant.cu``
 * ``quant_det_tiles``           — ``csrc/quant_det_tiles.cu``
 * ``quant_det_tiles_bwd``       — ``csrc/quant_det_tiles.cu``
@@ -158,9 +158,9 @@ def load() -> ctypes.CDLL:
         lib.repro_quant_rand_bwd.argtypes = [p, p, p, p, u32, p, p, p, p, i64, *fmt_args, p]
         lib.repro_quant_pack_sub_many.argtypes = [p, p, i32, p, p, i64, i64, i32, *fmt_args,
                                                   p]
-        lib.repro_unpack_sub_tiles.argtypes = [p, p, i32, p, i64, i32, *fmt_args, p]
-        lib.repro_quant_pack_amax_tiles.argtypes = [p, p, i32, p, p, p, i64, i32,
-                                                    *fmt_args, p]
+        lib.repro_unpack_sub_many.argtypes = [p, p, i32, p, i64, i32, *fmt_args, p]
+        lib.repro_quant_pack_amax_many.argtypes = [p, p, i32, i64, p, p, p, i64, i64, i32,
+                                                   *fmt_args, p]
         lib.repro_rans_encode.argtypes = [p, i64, i64, i64, i32, p, p, p, p, p]
         lib.repro_rans_decode.argtypes = [p, i64, p, p, i64, i64, i32, p, p, p, p, p]
         lib.repro_rans_chain.argtypes = [i32, i64, p, p, p, p, p, p]
@@ -174,8 +174,8 @@ def load() -> ctypes.CDLL:
                    lib.repro_quant_det_bwd, lib.repro_quant_pack_tiles,
                    lib.repro_unpack_tiles, lib.repro_fake_quant_many,
                    lib.repro_quant_rand, lib.repro_quant_rand_bwd,
-                   lib.repro_quant_pack_sub_many, lib.repro_unpack_sub_tiles,
-                   lib.repro_quant_pack_amax_tiles, lib.repro_rans_encode,
+                   lib.repro_quant_pack_sub_many, lib.repro_unpack_sub_many,
+                   lib.repro_quant_pack_amax_many, lib.repro_rans_encode,
                    lib.repro_rans_decode, lib.repro_rans_chain, lib.repro_qat_matmul,
                    lib.repro_qat_matmul_dx,
                    lib.repro_qat_matmul_dw, lib.repro_fake_quant_amax_tiles,
@@ -231,10 +231,21 @@ def _check_plane(x2: torch.Tensor, a_col: torch.Tensor, name: str = "x2") -> Non
 def _check_alpha_tiles(x2: torch.Tensor, a2: torch.Tensor) -> int:
     if x2.dim() != 2 or x2.shape[1] != LANE:
         raise ValueError(f"tiles must be (R, {LANE}), got {tuple(x2.shape)}")
-    if a2.dim() != 2 or a2.shape[0] != x2.shape[0] or a2.shape[1] not in (1, LANE):
+    return _check_alpha_rows(x2.shape[0], a2)
+
+
+def _check_alpha_rows(rows: int, a2: torch.Tensor) -> int:
+    """An ``(R, 1)`` or ``(R, 1024)`` f32 alpha of ``rows`` rows; returns its columns."""
+    if a2.dim() != 2 or a2.shape[0] != rows or a2.shape[1] not in (1, LANE):
         raise ValueError(f"alpha must be (R, 1) or (R, {LANE}), got {tuple(a2.shape)}")
     _check(a2, "alpha", torch.float32)
     return int(a2.shape[1])
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """A kernel operand it loads in 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
 
 
 def _fmt_args(fmt: FP8Format):
@@ -507,23 +518,74 @@ def _pack_sub_many(x3, a3, keys, k: int, fmt) -> torch.Tensor:
 
 def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor,
                      fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
-    """Decode ``(R, 1024 // k)`` packed u8 codes to ``(R, 1024)`` f32."""
+    """Decode ``(R, 1024 // k)`` packed u8 codes to ``(R, 1024)`` f32. The
+    P = 1 launch of :func:`unpack_sub_many`."""
     k = _sub_codes(fmt)
     if _on_cpu(c2, a2):
         return ref.unpack_sub_tiles(c2, a2, fmt)
     _check(c2, "c2", torch.uint8)
     if c2.dim() != 2 or c2.shape[1] != LANE // k:
         raise ValueError(f"packed codes must be (R, {LANE // k}), got {tuple(c2.shape)}")
+    a_cols = _check_alpha_rows(c2.shape[0], a2)
     out = torch.empty((c2.shape[0], LANE), dtype=torch.float32, device=c2.device)
-    a_cols = _check_alpha_tiles(out, a2)
-    rc = load().repro_unpack_sub_tiles(c2.data_ptr(), a2.data_ptr(), a_cols,
-                                       out.data_ptr(), c2.numel(), k,
-                                       *_fmt_args(fmt), _stream())
+    return _unpack_sub_launch(c2, a2, a_cols, out, k, fmt)
+
+
+def unpack_sub_many(c3: torch.Tensor, a3: torch.Tensor,
+                    fmt: FP8Format = FP4_E2M1) -> torch.Tensor:
+    """A cohort's FP4 decodes in one launch: ``(P, R, 1024 // k)`` packed u8
+    codes, alphas ``(P, R, 1)`` or ``(P, R, 1024)`` -> ``(P, R, 1024)`` f32;
+    slice p is bitwise ``unpack_sub_tiles(c3[p], a3[p])``."""
+    k = _sub_codes(fmt)
+    if _on_cpu(c3, a3):
+        return ref.unpack_sub_tiles_many(c3, a3, fmt)
+    _check(c3, "c3", torch.uint8)
+    if c3.dim() != 3 or c3.shape[2] != LANE // k or a3.dim() != 3 or a3.shape[0] != c3.shape[0]:
+        raise ValueError(f"packed codes must be (P, R, {LANE // k}) with alpha (P, R, 1) or "
+                         f"(P, R, {LANE}), got {tuple(c3.shape)} and {tuple(a3.shape)}")
+    _check_alpha_rows(c3.shape[1], a3[0])
+    _check(a3, "alpha", torch.float32)
+    out = torch.empty((*c3.shape[:2], LANE), dtype=torch.float32, device=c3.device)
+    return _unpack_sub_launch(c3, a3, int(a3.shape[2]), out, k, fmt)
+
+
+def _unpack_sub_launch(c, a, a_cols: int, out, k: int, fmt) -> torch.Tensor:
+    """B8's decode of checked codes ``c`` at alphas ``a`` (either rank) into ``out``."""
+    if a_cols == LANE:
+        _check_aligned(a, "alpha")
+    rc = load().repro_unpack_sub_many(c.data_ptr(), a.data_ptr(), a_cols, out.data_ptr(),
+                                      c.numel(), k, *_fmt_args(fmt), _stream())
     _launched(rc, "unpack_sub_tiles")
     return out
 
 
-def _pack_amax(name: str, k: int, x2, a2, key2, fmt):
+def quant_pack_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                          key2: torch.Tensor | None = None,
+                          fmt: FP8Format = E4M3):
+    """:func:`quant_pack_tiles` and, from the same launch, the per-row max|x|
+    of the raw tiles: ``(codes (R, 1024) u8, rowmax (R, 1) f32)``. The P = 1
+    launch of :func:`quant_pack_amax_many`."""
+    if ref.codes_per_byte(fmt) != 1:
+        raise ValueError(f"{fmt.bits}-bit codes pack several per byte: "
+                         "use quant_pack_sub_amax_tiles")
+    if _on_cpu(x2, a2, key2):
+        return ref.quant_pack_amax_tiles(x2, a2, key2, fmt)
+    return _pack_amax_one(x2, a2, key2, 1, fmt)
+
+
+def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
+                              key2: torch.Tensor | None = None,
+                              fmt: FP8Format = FP4_E2M1):
+    """:func:`quant_pack_sub_tiles` and, from the same launch, the per-row
+    max|x| of the raw tiles: ``(codes (R, 1024 // k) u8, rowmax (R, 1) f32)``.
+    The P = 1 launch of :func:`quant_pack_amax_many`."""
+    k = _sub_codes(fmt)
+    if _on_cpu(x2, a2, key2):
+        return ref.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)
+    return _pack_amax_one(x2, a2, key2, k, fmt)
+
+
+def _pack_amax_one(x2, a2, key2, k: int, fmt):
     _check(x2, "x2", torch.float32)
     a_cols = _check_alpha_tiles(x2, a2)
     if key2 is not None:
@@ -531,35 +593,50 @@ def _pack_amax(name: str, k: int, x2, a2, key2, fmt):
     rows = x2.shape[0]
     codes = torch.empty((rows, LANE // k), dtype=torch.uint8, device=x2.device)
     rowmax = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
-    rc = load().repro_quant_pack_amax_tiles(
-        x2.data_ptr(), a2.data_ptr(), a_cols, _ptr(key2), codes.data_ptr(),
-        rowmax.data_ptr(), rows, k, *_fmt_args(fmt), _stream())
-    _launched(rc, name)
+    return _pack_amax_launch(x2, a2, a_cols, 0, key2, codes, rowmax, 1, k, fmt)
+
+
+def quant_pack_amax_many(x3: torch.Tensor, a3: torch.Tensor,
+                         keys: torch.Tensor | None = None, fmt: FP8Format = E4M3):
+    """A cohort's wire encodes with the per-row raw max|x| in one launch:
+    ``(P, R, 1024)`` f32 tiles, alphas ``(P, R, 1)`` or ``(P, R, 1024)``
+    (``expand`` of one slice, stride 0 over P, is taken as it is), ``keys``
+    ``(P, 2)`` u32 (None: det) -> ``(codes (P, R, 1024 // k) u8, rowmax (P,
+    R, 1) f32)`` at ``k = 8 // fmt.bits`` codes a byte (FP8 or FP4); slice p
+    is bitwise the single launch on ``(x3[p], a3[p], keys[p])``. Counted
+    under ``quant_pack_amax_tiles`` (FP8) or ``quant_pack_sub_amax_tiles``."""
+    if _on_cpu(x3, a3, keys):
+        return ref.quant_pack_amax_tiles_many(x3, a3, keys, fmt)
+    k = ref.codes_per_byte(fmt)
+    if k > 2:
+        raise ValueError(f"{fmt.bits}-bit codes: the amax encodes take 8- or 4-bit formats")
+    _check(x3, "x3", torch.float32)
+    if x3.dim() != 3 or a3.dim() != 3 or a3.shape[0] != x3.shape[0]:
+        raise ValueError(f"tiles must be (P, R, {LANE}) with alpha (P, R, 1) or (P, R, {LANE}),"
+                         f" got {tuple(x3.shape)} and {tuple(a3.shape)}")
+    a_cols = _check_alpha_tiles(x3[0], a3[0])
+    if a3.shape[0] > 1 and a3.stride(0) not in (0, a3[0].numel()):
+        raise ValueError("alpha: its slices must be contiguous, or one slice expanded over P")
+    if keys is not None:
+        _check(keys, "keys", torch.uint32, (x3.shape[0], 2))
+    p, rows = x3.shape[0], x3.shape[1]
+    codes = torch.empty((p, rows, LANE // k), dtype=torch.uint8, device=x3.device)
+    rowmax = torch.empty((p, rows, 1), dtype=torch.float32, device=x3.device)
+    return _pack_amax_launch(x3, a3, a_cols, a3.stride(0), keys, codes, rowmax, p, k, fmt)
+
+
+def _pack_amax_launch(x, a, a_cols: int, a_stride: int, keys, codes, rowmax, p: int, k: int,
+                      fmt):
+    """B9's amax encode of ``p`` checked planes ``x`` (either rank; slice
+    alphas ``a_stride`` floats apart) into ``codes`` and ``rowmax``."""
+    _check_aligned(x, "x")
+    if a_cols == LANE:
+        _check_aligned(a, "alpha")
+    rc = load().repro_quant_pack_amax_many(
+        x.data_ptr(), a.data_ptr(), a_cols, a_stride, _ptr(keys), codes.data_ptr(),
+        rowmax.data_ptr(), p, codes.shape[-2], k, *_fmt_args(fmt), _stream())
+    _launched(rc, "quant_pack_amax_tiles" if k == 1 else "quant_pack_sub_amax_tiles")
     return codes, rowmax
-
-
-def quant_pack_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
-                          key2: torch.Tensor | None = None,
-                          fmt: FP8Format = E4M3):
-    """:func:`quant_pack_tiles` and, from the same launch, the per-row max|x|
-    of the raw tiles: ``(codes (R, 1024) u8, rowmax (R, 1) f32)``."""
-    if ref.codes_per_byte(fmt) != 1:
-        raise ValueError(f"{fmt.bits}-bit codes pack several per byte: "
-                         "use quant_pack_sub_amax_tiles")
-    if _on_cpu(x2, a2, key2):
-        return ref.quant_pack_amax_tiles(x2, a2, key2, fmt)
-    return _pack_amax("quant_pack_amax_tiles", 1, x2, a2, key2, fmt)
-
-
-def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
-                              key2: torch.Tensor | None = None,
-                              fmt: FP8Format = FP4_E2M1):
-    """:func:`quant_pack_sub_tiles` and, from the same launch, the per-row
-    max|x| of the raw tiles: ``(codes (R, 1024 // k) u8, rowmax (R, 1) f32)``."""
-    k = _sub_codes(fmt)
-    if _on_cpu(x2, a2, key2):
-        return ref.quant_pack_sub_amax_tiles(x2, a2, key2, fmt)
-    return _pack_amax("quant_pack_sub_amax_tiles", k, x2, a2, key2, fmt)
 
 
 def fake_quant_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,

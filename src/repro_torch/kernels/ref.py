@@ -418,10 +418,11 @@ def quant_pack_tiles(x2: torch.Tensor, a2: torch.Tensor,
     return _pack_codes(x2, a2, _tile_bits(x2.shape, key2, row0), fmt).to(torch.uint8)
 
 
-def _decode_codes(code: torch.Tensor, a2: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
-    """Twin of ``_decode_codes``: int ``[sign|exp|mant]`` codes -> f32 grid values."""
-    a = a2.to(torch.float32)
-    b = _bias(a, fmt)
+def _decode_codes(code: torch.Tensor, a2: torch.Tensor, fmt: FP8Format,
+                  b: torch.Tensor | None = None) -> torch.Tensor:
+    """Twin of ``_decode_codes``: int ``[sign|exp|mant]`` codes -> f32 grid
+    values; ``b`` the alphas' bias where the caller made it."""
+    b = _bias(a2.to(torch.float32), fmt) if b is None else b
     sign = (code >> (fmt.exp + fmt.mant)) & 0x1
     f = (code >> fmt.mant) & (2 ** fmt.exp - 1)
     m_field = code & (2 ** fmt.mant - 1)
@@ -533,14 +534,15 @@ def fold_codes(codes: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
 
 
 def unfold_codes(packed: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
-    """Inverse of :func:`fold_codes`: packed u8 -> ``(R, L)`` int32 codes."""
+    """Inverse of :func:`fold_codes`: packed u8 ``(..., L // k)`` -> ``(..., L)``
+    int32 codes."""
     k = codes_per_byte(fmt)
     p = packed.to(torch.int32)
     if k == 1:
         return p
     mask = (1 << fmt.bits) - 1
     code = torch.stack([(p >> (fmt.bits * j)) & mask for j in range(k)], dim=-1)
-    return code.reshape(p.shape[0], p.shape[1] * k)
+    return code.reshape(*p.shape[:-1], p.shape[-1] * k)
 
 
 def quant_pack_sub_tiles(x2: torch.Tensor, a2: torch.Tensor,
@@ -556,7 +558,8 @@ def quant_pack_sub_tiles_many(x3: torch.Tensor, a3: torch.Tensor,
     """Twin of ``quant_pack_sub_kernel`` over a cohort: ``(P, R, LANE)`` f32
     at alphas ``(P, R, 1 | LANE)``, slice p rounded with ``keys[p]`` (``(P,
     2)`` u32; None: det) -> ``(P, R, LANE // codes_per_byte)`` u8; slice p is
-    :func:`quant_pack_sub_tiles` ``(x3[p], a3[p], keys[p])``."""
+    :func:`quant_pack_sub_tiles` ``(x3[p], a3[p], keys[p])`` (at an 8-bit
+    ``fmt``, :func:`quant_pack_tiles`)."""
     bits = None if keys is None else slice_counter_bits(tuple(x3.shape), keys)
     return fold_codes(_pack_codes(x3, a3, bits, fmt, _slice_bias(a3, fmt)), fmt)
 
@@ -564,6 +567,13 @@ def quant_pack_sub_tiles_many(x3: torch.Tensor, a3: torch.Tensor,
 def unpack_sub_tiles(c2: torch.Tensor, a2: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
     """Twin of ``_unpack_sub_kernel``: packed u8 -> ``(R, LANE)`` f32."""
     return _decode_codes(unfold_codes(c2, fmt), a2, fmt)
+
+
+def unpack_sub_tiles_many(c3: torch.Tensor, a3: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
+    """Twin of ``unpack_sub_kernel`` over a cohort: ``(P, R, LANE //
+    codes_per_byte)`` packed u8 at alphas ``(P, R, 1 | LANE)`` -> ``(P, R,
+    LANE)`` f32; slice p is :func:`unpack_sub_tiles` ``(c3[p], a3[p])``."""
+    return _decode_codes(unfold_codes(c3, fmt), a3, fmt, _slice_bias(a3, fmt))
 
 
 def _rowmax(x2: torch.Tensor) -> torch.Tensor:
@@ -583,6 +593,18 @@ def quant_pack_sub_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
     """Twin of ``quant_pack_sub_amax_tiles``: :func:`quant_pack_sub_tiles`
     and the per-row raw amax."""
     return quant_pack_sub_tiles(x2, a2, key2, fmt), _rowmax(x2)
+
+
+def quant_pack_amax_tiles_many(x3: torch.Tensor, a3: torch.Tensor,
+                               keys: torch.Tensor | None, fmt: FP8Format = E4M3):
+    """Twin of ``quant_pack_amax_kernel`` over a cohort: ``(P, R, LANE)``
+    f32 at alphas ``(P, R, 1 | LANE)`` (one slice expanded over P too),
+    slice p rounded with ``keys[p]`` (``(P, 2)`` u32; None: det) -> ``(codes
+    (P, R, LANE // codes_per_byte) u8, rowmax (P, R, 1))``; slice p is
+    :func:`quant_pack_amax_tiles` (FP8) or :func:`quant_pack_sub_amax_tiles`
+    ``(x3[p], a3[p], keys[p])``."""
+    return (quant_pack_sub_tiles_many(x3, a3, keys, fmt),
+            torch.amax(torch.abs(x3), dim=2, keepdim=True))
 
 
 # ---------------------------------------------------------------------------

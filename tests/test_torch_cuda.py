@@ -728,6 +728,179 @@ def test_format_round_on_the_card_runs_the_new_kernels(dev):
             assert fp8_quant.LAUNCHES["quant_pack_tiles"] == 0
 
 
+
+# --- the cohort decode (B8) and the cohort amax encode (B9) -----------------
+
+
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("rows", [9, 135, 8191])
+@pytest.mark.parametrize("fmt", list(FP4))
+@pytest.mark.parametrize("layout", ["column", "full", "varying"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_cohort_decode_is_its_twin_and_p_single_launches(dev, p, rows, fmt, layout, stochastic):
+    """The decode bitwise its twin and the P single launches, one launch a
+    call, two calls equal; the last row an odd leaf's tail (a pad nibble,
+    then zero fill)."""
+    f = FP4[fmt]
+    x3 = _randn((p, rows, 1024), 61 + rows, 0.2, dev)
+    x3[:, -1, 517:] = 0.0
+    a3 = _alpha_stack(x3, layout)
+    keys = qat_probe.key_rows(p, dev, 62) if stochastic else None
+    codes = fp8_quant.quant_pack_sub_many(x3, a3, keys, f)
+    before = fp8_quant.LAUNCHES["unpack_sub_tiles"]
+    vals = fp8_quant.unpack_sub_many(codes, a3, f)
+    assert fp8_quant.LAUNCHES["unpack_sub_tiles"] == before + 1
+    assert vals.dtype == torch.float32 and tuple(vals.shape) == (p, rows, 1024)
+    assert torch.equal(vals.view(torch.int32),
+                       ref.unpack_sub_tiles_many(codes, a3, f).view(torch.int32))
+    assert torch.equal(vals.view(torch.int32),
+                       fp8_quant.unpack_sub_many(codes, a3, f).view(torch.int32))
+    assert not vals[:, -1, 517:].any()
+    for i in range(p):
+        assert torch.equal(vals[i].view(torch.int32),
+                           fp8_quant.unpack_sub_tiles(codes[i], a3[i], f).view(torch.int32))
+
+
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("rows", [9, 135, 8191])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "e2m1", "e3m0"])
+@pytest.mark.parametrize("layout", ["column", "full", "varying", "expanded"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_cohort_amax_encode_is_its_twin_and_p_single_launches(dev, p, rows, fmt, layout,
+                                                              stochastic):
+    """Codes bitwise the twin's, the plain encodes' and the P single
+    launches', row maxima ``torch.amax``'s, one launch a call, two calls
+    equal; the alphas a stack or one slice expanded over P."""
+    f = {"e4m3": E4M3, "e5m2": E5M2, **FP4}[fmt]
+    x3 = _randn((p, rows, 1024), 63 + rows, 0.2, dev)
+    x3[:, -1, 517:] = 0.0
+    a3 = _alpha_stack(x3, "column" if layout == "expanded" else layout)
+    if layout == "expanded":
+        a3 = a3[:1].expand(a3.shape)
+    keys = qat_probe.key_rows(p, dev, 64) if stochastic else None
+    name = "quant_pack_amax_tiles" if f.bits == 8 else "quant_pack_sub_amax_tiles"
+    before = fp8_quant.LAUNCHES[name]
+    codes, rowmax = fp8_quant.quant_pack_amax_many(x3, a3, keys, f)
+    assert fp8_quant.LAUNCHES[name] == before + 1
+    assert tuple(codes.shape) == (p, rows, 1024 * f.bits // 8)
+    want_c, want_m = ref.quant_pack_amax_tiles_many(x3, a3, keys, f)
+    assert torch.equal(codes, want_c) and torch.equal(rowmax, want_m)
+    assert torch.equal(rowmax, torch.amax(x3.abs(), 2, keepdim=True))
+    again = fp8_quant.quant_pack_amax_many(x3, a3, keys, f)
+    assert torch.equal(again[0], codes) and torch.equal(again[1], rowmax)
+    single = fp8_quant.quant_pack_amax_tiles if f.bits == 8 else \
+        fp8_quant.quant_pack_sub_amax_tiles
+    plain = fp8_quant.quant_pack_tiles if f.bits == 8 else fp8_quant.quant_pack_sub_tiles
+    for i in range(p):
+        k = None if keys is None else keys[i]
+        c, m = single(x3[i], a3[i], k, f)
+        assert torch.equal(c, codes[i]) and torch.equal(m, rowmax[i])
+        assert torch.equal(plain(x3[i], a3[i], k, f), codes[i])
+
+
+def test_cohort_decode_and_amax_wrappers_validate_inputs(dev):
+    x3 = _randn((3, 4, 1024), 65, 0.2, dev)
+    a3 = x3.abs().amax(dim=2, keepdim=True)
+    keys = qat_probe.key_rows(3, dev, 66)
+    c3 = fp8_quant.quant_pack_sub_many(x3, a3, keys)
+    with pytest.raises(ValueError, match=r"\(P, R, 512\)"):
+        fp8_quant.unpack_sub_many(c3[:, :, :256].contiguous(), a3)
+    with pytest.raises(ValueError, match=r"\(P, R, 512\)"):
+        fp8_quant.unpack_sub_many(c3, a3[:2])
+    with pytest.raises(ValueError, match=r"\(R, 1\)"):
+        fp8_quant.unpack_sub_many(c3, torch.ones((3, 4, 2), device=dev))
+    with pytest.raises(TypeError, match="uint8"):
+        fp8_quant.unpack_sub_many(c3.int(), a3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fp8_quant.unpack_sub_many(c3.transpose(0, 1).contiguous().transpose(0, 1), a3)
+    # codes are read a byte a thread: a view off a 16-byte boundary decodes the same
+    off = torch.zeros(3 * 4 * 512 + 1, dtype=torch.uint8, device=dev)[1:].view(3, 4, 512)
+    off.copy_(c3)
+    assert torch.equal(fp8_quant.unpack_sub_many(off, a3), fp8_quant.unpack_sub_many(c3, a3))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fp8_quant.unpack_sub_many(c3, _randn((3 * 4 * 1024 + 1,), 70, 1.0, dev)[1:].view(
+            3, 4, 1024))
+    with pytest.raises(ValueError, match="one byte each"):
+        fp8_quant.unpack_sub_many(c3, a3, E4M3)
+    with pytest.raises(TypeError, match="float32"):
+        fp8_quant.quant_pack_amax_many(x3.double(), a3, keys)
+    with pytest.raises(ValueError, match=r"\(3, 2\)"):
+        fp8_quant.quant_pack_amax_many(x3, a3, keys[:2])
+    with pytest.raises(ValueError, match=r"\(P, R, 1024\)"):
+        fp8_quant.quant_pack_amax_many(x3, a3[:2])
+    with pytest.raises(ValueError, match="expanded over P"):
+        fp8_quant.quant_pack_amax_many(x3, torch.ones((3, 8, 1), device=dev)[:, :4])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fp8_quant.quant_pack_amax_many(
+            _randn((3 * 4 * 1024 + 1,), 67, 0.2, dev)[1:].view(3, 4, 1024), a3)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        fp8_quant.quant_pack_amax_many(x3, a3.cpu(), keys)
+
+
+@pytest.mark.parametrize("up", ["fp4_e2m1", "fp4_e3m0_det", "delta:fp4_e2m1",
+                                "rans:fp4_e2m1", "ef:fp4_e2m1_det", "ef:rans:fp4_e2m1_det"])
+def test_cohort_uplink_on_the_card_is_one_decode_launch(dev, up):
+    """A cohort's FP4 uplink decodes in one B8 launch, its messages the
+    per-client uplink's bit for bit."""
+    from test_torch_cohort_launch import ef_per_client, up_per_client
+
+    from repro_torch.core import codec, wire
+    from repro_torch.core.engine import WireLink
+    from repro_torch.models import small
+
+    params = small.init_lenet(0, device=dev)
+    clients = [tree.tree_map(lambda v, s=s: v * s, params) for s in (1.01, 0.99, 1.02)]
+    spec = wire.make_wire_spec(params)
+    keys = qat_probe.key_rows(3, dev, 68)
+    c = codec.get_codec(up)
+    before = fp8_quant.LAUNCHES["unpack_sub_tiles"]
+    if up.startswith("ef:"):
+        e_sel = torch.zeros((3, spec.total), device=dev)
+        msgs, _, _ = c.up_transit(list(clients), spec, keys, e_sel)
+        launched = fp8_quant.LAUNCHES["unpack_sub_tiles"] - before
+        want, _, _ = ef_per_client(c, clients, spec, keys, e_sel)
+    else:
+        msgs, _ = WireLink("fp4_e2m1", up).up(list(clients), spec, keys, ref=params)
+        launched = fp8_quant.LAUNCHES["unpack_sub_tiles"] - before
+        want, _, _ = up_per_client(c, clients, spec, keys, ref_model=params)
+    assert launched == 1
+    for m, w in zip(msgs, want):
+        for (n, a), (_, b) in zip(tree.flatten(m), tree.flatten(w)):
+            assert torch.equal(a, b), (up, n)
+
+
+@pytest.mark.parametrize("up", ["e4m3", "fp4_e2m1"])
+def test_scaled_uplink_on_the_card_is_one_amax_launch(dev, up):
+    """A delayed-scaling uplink encodes its cohort in one amax launch (an
+    FP4 one also decodes in one launch), its messages and ``(P, n_q)`` amax
+    the per-client uplink's bit for bit."""
+    from test_torch_cohort_decode import up_scaled_per_client
+
+    from repro_torch.core import wire
+    from repro_torch.core.engine import WireLink
+    from repro_torch.models import small
+
+    params = small.init_lenet(0, device=dev)
+    clients = [tree.tree_map(lambda v, s=s: v * s, params) for s in (1.01, 0.99, 1.02)]
+    spec = wire.make_wire_spec(params)
+    keys = qat_probe.key_rows(3, dev, 69)
+    link = WireLink(up, up, "delayed:4", "delayed:4")
+    _, st = link.scales_init(params, spec)
+    fp4 = up.startswith("fp4")
+    amax_name = "quant_pack_sub_amax_tiles" if fp4 else "quant_pack_amax_tiles"
+    dec_name = "unpack_sub_tiles" if fp4 else "unpack_tiles"
+    before = dict(fp8_quant.LAUNCHES)
+    msgs, amax = link.up_scaled(list(clients), spec, keys, st)
+    assert fp8_quant.LAUNCHES[amax_name] == before[amax_name] + 1
+    assert fp8_quant.LAUNCHES[dec_name] == before[dec_name] + (1 if fp4 else 3)
+    want, want_amax = up_scaled_per_client(link.up_c, clients, spec, keys,
+                                           link.up_p.effective(st))
+    assert torch.equal(amax, want_amax)
+    for m, w in zip(msgs, want):
+        for (n, a), (_, b) in zip(tree.flatten(m), tree.flatten(w)):
+            assert torch.equal(a, b), (up, n)
+
+
 # --- the rANS pair (B12 decode, and the encode): integer-only, bitwise ------
 
 

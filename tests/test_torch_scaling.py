@@ -161,7 +161,8 @@ def test_encode_scaled_with_amax_matches_reference(codec):
     rc, tc = r_codec.get_codec(codec), t_codec.get_codec(codec)
     a = np.array([0.5, 0.25, 0.75], np.float32)[:len(ts.q_slots)]
     rpay, ramax = rc.encode_scaled(rp, rs, jnp.asarray(KEY), jnp.asarray(a), with_amax=True)
-    tpay, tamax = tc.encode_scaled(tp, ts, _tkey(), torch.from_numpy(a), with_amax=True)
+    tpays, tamax = tc.encode_scaled_many([tp], ts, _tkey()[None], torch.from_numpy(a))
+    tpay, tamax = tpays[0], tamax[0]
     np.testing.assert_array_equal(tamax.numpy(), np.asarray(ramax))
     flat = dict(tree.flatten(tp))
     np.testing.assert_array_equal(tamax.numpy(),
