@@ -13,8 +13,10 @@ Phases, each fatal on failure (the script then exits non-zero):
 2. the premise of B1/B2's scale table, log2f non-decreasing over all 2^31
    f32 patterns from +0 to FLT_MAX (``log2f_phase``, one launch); then
    each kernel against its plain PyTorch twin on the card, at the shapes
-   of every path driven below (the three Table 1 models: cifar10-lenet,
-   cifar100-mlp, speech-kwt): the QAT pair at every QAT site shape of each
+   of every path driven below (the Table 1 models: cifar10-lenet,
+   cifar100-mlp, speech-kwt, and phase 9's cifar10-resnet and
+   speech-matchbox, whose 175- and 62-row planes the wire kernels and B5
+   take): the QAT pair at every QAT site shape of each
    model at batch 32 (random inputs; ``ACT_SHAPES`` and the weights), on
    each model's init weights and a batch of its data at their own clip
    values, at a multi-block ragged (8191, 1024), at odd lengths (1, 7, 8,
@@ -142,8 +144,9 @@ Phases, each fatal on failure (the script then exits non-zero):
    plane and a ragged plane of stacked segments (out and gx bitwise, each
    row's clip cotangent within GA_RTOL of its terms' magnitude sum), B9
    ``fake_quant_amax_tiles`` (det and counter-RNG, alpha column and per
-   element, at (135, 1024) and (8191, 1024): values bitwise against B5, row
-   max equal to ``torch.amax``) and the bf16 B1/B2 instances at the
+   element, at (135, 1024) and (8191, 1024): values bitwise against its
+   twin and B5, row max equal to the twin's and ``torch.amax``) and the
+   bf16 B1/B2 instances at the
    trainer's activation shapes, odd lengths and misaligned views, each
    timed beside its twin and bound, with ``qat_probe.py``'s copy and
    arithmetic probes and SASS counts (what bounds them)
@@ -160,9 +163,27 @@ Phases, each fatal on failure (the script then exits non-zero):
    kernel a B2 call); then 2 steps at opt_level 0:
    B10/B11 at every projection, no B7 (``trainer_main_path_phase``).
 
-Before the JSON lines, one ``[launches]`` line: each wire kernel's launches
+9. the paths of the paper's other two models and the two small drivers
+   (``paper_phase``, after phase 5), each driven with the counters zeroed
+   just before and read just after: ``repro_torch.bench.table1`` on
+   cifar10-resnet and speech-matchbox (iid and Dir(0.3) x fp32/uq/uq+, at
+   5 of the driver's 20 rounds, ``PAPER_GRID_ROUNDS``, eval every 5), every
+   row's bytes the reference's integer
+   (``GRID_BYTES``); one more cifar10-resnet uq+ round timed and profiled
+   (s/round, device busy, device us a launch of B1-B5 at ResNet's shapes,
+   the B3/B4 route its 175-row wire plane takes); one round of each new
+   model on the card against the same round on the CPU twins at the FP8-tie
+   bars (ROADMAP section 3, mechanism 7), the clip values and the other
+   leaves that are not quantized weights each held to ``PAPER_LEAF_BARS``;
+   ``repro_torch.bench.quickstart``
+   at its 40 rounds and ``repro_torch.bench.fig2`` at the reference driver's
+   CPU-budget scale, their bytes the reference's integers
+   (``QUICKSTART_BYTES``, ``FIG2_BYTES``), accuracy and wall printed.
+
+Before the JSON lines, two ``[launches]`` lines: each wire kernel's launches
 (the FP8 and FP4 pairs, B5 and the three amax encodes) summed over every
-path of phases 4-8, and by path; each total must be ``WIRE_LAUNCH_TOTALS``'. The second-to-last line is a JSON object
+path of phases 4-8, and by path, each total ``WIRE_LAUNCH_TOTALS``'; then
+the same over phase 9's paths (not asserted). The second-to-last line is a JSON object
 with one entry per kernel (its launches counted on the path that runs it;
 B1/B2 and the wire kernels also over every path of phases 4-8); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -194,7 +215,25 @@ GRID_BYTES = {
     ("cifar100-mlp", "uq"): 93168, ("cifar100-mlp", "uq+"): 93168,
     ("speech-kwt", "fp32"): 2606376, ("speech-kwt", "uq"): 722856,
     ("speech-kwt", "uq+"): 722856,
+    # the paper's ResNet (175658 params) and MatchboxNet (63091), phase 9
+    ("cifar10-resnet", "fp32"): 4215792, ("cifar10-resnet", "uq"): 1081488,
+    ("cifar10-resnet", "uq+"): 1081488, ("speech-matchbox", "fp32"): 1514184,
+    ("speech-matchbox", "uq"): 396744, ("speech-matchbox", "uq+"): 396744,
 }
+PAPER_TASKS = ("cifar10-resnet", "speech-matchbox")   # phase 9's Table 1 cells
+PAPER_GRID_ROUNDS = 5   # of bench.table1's 20 rounds (at 10, phase 9 took 275 s on an H100)
+PAPER_PLANE_ROWS = {"cifar10-resnet": 175, "speech-matchbox": 62}
+# phase 9's card-vs-CPU uq round of each new model: the worst absolute
+# difference allowed on a clip value and on any other leaf that is not a
+# quantized weight (biases, GroupNorm), about twice the worst seen on an
+# H100 (1.24e-5 and 5.03e-3 for ResNet, whose GroupNorms carry the f32
+# noise of the cuDNN convolutions; 4.77e-7, one ULP, and 2.17e-4 for
+# MatchboxNet)
+PAPER_LEAF_BARS = {"resnet": (2.5e-5, 1e-2), "matchbox": (1e-6, 5e-4)}
+# the reference's bytes per round of examples/quickstart.py (MLP d_in 32, K=20,
+# C=0.25) and of benchmarks/fig2_curves.py's methods (cifar100-mlp, K=10, C=0.3)
+QUICKSTART_BYTES = {"FP32 FedAvg": 277120, "FP8FedAvg-UQ": 73600}
+FIG2_BYTES = {"fp32": 355824, "bq": 93168, "uq": 93168, "uq+": 93168}
 TABLE2_BYTES = {"rand-qat": 124224, "rand-qat-only": 474432}
 GRID_ROUNDS, GRID_EVAL_EVERY = 10, 5    # 10 of the reference driver's 20 CPU-budget rounds
 # the reference's bytes per round of the format ablation's cells (MLP d_in 64,
@@ -320,6 +359,15 @@ ACT_SHAPES = {
     "cifar100-mlp": [(32, 64)],
     "speech-kwt": [(32, 32, 64), (32, 33, 64), (32, 33, 256), (32, 64)],
 }
+# the same for phase 9's models (``paper_kernel_cases``, its own generator):
+# ResNet's stem input, each stage's block inputs (a stride-2 conv and its
+# projection read the previous stage's), the head's pooled input;
+# MatchboxNet's every conv's (B, T, C) input, the head's pooled input
+PAPER_ACT_SHAPES = {
+    "cifar10-resnet": [(32, 32, 32, 3), (32, 32, 32, 16), (32, 16, 16, 32), (32, 8, 8, 64),
+                       (32, 64)],
+    "speech-matchbox": [(32, 32, 64), (32, 64)],
+}
 LARGE = (8191, 1024)    # a multi-block ragged shape
 
 
@@ -440,23 +488,8 @@ def kernel_phase(dev) -> dict:
     for label, x, a in qat_cases:
         # cotangent with the sign of x: the clipped terms of g_alpha then add
         # up instead of cancelling, so relative error measures the kernel
-        shape = tuple(x.shape)
-        gr = randn(shape, 1.0).abs() * torch.sign(x)
-        a = x.abs().max() * 0.8 if a is None else a
-        n = x.numel()
-        bad, err = mismatches(K.quant_det(x, a), R.quant_det(x, a))
-        worst["quant_det"] = max(worst["quant_det"], err)
-        check(bad <= TIE_FRAC * n, f"quant_det {label} {shape}: {bad} of {n} differ")
-        gx, ga = K.quant_det_bwd(x, a, gr)
-        rgx, rga = R.quant_det_bwd(x, a, gr)
-        bad, err = mismatches(gx, rgx)
-        rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
-        worst["quant_det_bwd"] = max(worst["quant_det_bwd"], err,
-                                     abs(float(ga) - float(rga)))
-        check(bad == 0, f"quant_det_bwd gx {label} {shape}: {bad} of {n} differ")
-        check(rel <= GA_RTOL, f"quant_det_bwd g_alpha {label} {shape}: rel err {rel:.3g}")
-        print(f"[kernels] quant_det/bwd {label} {shape}: g_alpha kernel {float(ga):.9g} "
-              f"twin {float(rga):.9g} rel {rel:.3g}")
+        qat_pair_case(K, R, label, x, a, randn(tuple(x.shape), 1.0).abs() * torch.sign(x),
+                      worst)
 
     qat_pair_edge_cases(dev, torch.float32, worst)
 
@@ -471,27 +504,7 @@ def kernel_phase(dev) -> dict:
         tile_cases.append(("random", x, x.abs().amax(dim=1, keepdim=True) * 0.9))
     tile_cases += planes
     for label, x, col in tile_cases:
-        for a2 in (col, col.expand(x.shape).contiguous()):
-            for k2 in (None, key):
-                lab = f"{label} a{tuple(a2.shape)} {'rand' if k2 is not None else 'det'}"
-                c = K.quant_pack_tiles(x, a2, k2)
-                bad, err = mismatches(c, R.quant_pack_tiles(x, a2, k2))
-                worst["quant_pack_tiles"] = max(worst["quant_pack_tiles"], err)
-                check(bad == 0, f"quant_pack_tiles {lab}: {bad} codes differ")
-                wire_vals = K.unpack_tiles(c, a2)
-                bad, err = mismatches(wire_vals, R.unpack_tiles(c, a2))
-                worst["unpack_tiles"] = max(worst["unpack_tiles"], err)
-                check(bad == 0, f"unpack_tiles {lab}: {bad} values differ")
-                q = K.fake_quant_tiles(x, a2, k2)
-                bad, err = mismatches(q, R.fake_quant_tiles(x, a2, k2))
-                worst["fake_quant_tiles"] = max(worst["fake_quant_tiles"], err)
-                check(bad == 0, f"fake_quant_tiles {lab}: {bad} values differ")
-                aw = wire_vals.abs()
-                ulp = torch.nextafter(aw, torch.full_like(aw, math.inf)) - aw
-                check(bool(((q - wire_vals).abs() <= ulp).all()),
-                      f"fake_quant_tiles {lab}: not within 1 ULP of the wire transit")
-        print(f"[kernels] tile kernels {label} {tuple(x.shape)}: det and rand, "
-              f"alpha column and per element: ok")
+        tile_case(K, R, label, x, col, key, worst)
 
     # the quant_rand pair (B6): every task's init weights at their own alpha,
     # random inputs at every MLP weight shape (cifar100-mlp, and the d_in 32
@@ -581,6 +594,7 @@ def kernel_phase(dev) -> dict:
         print(f"[kernels] FP4 pair and amax encodes {label} {tuple(x.shape)}: both FP4 "
               f"formats, E4M3/E5M2 amax, det and rand, alpha column and per element: ok")
     n_cases += cohort_launch_cases(dev, K, R, format_planes, planes, key, worst)
+    n_cases += paper_kernel_cases(dev, K, R, key, worst)
     print(f"[kernels] all kernels within bound ({n_cases} FP4 cases); max abs err {worst}")
     synchronize()
 
@@ -663,6 +677,103 @@ def kernel_phase(dev) -> dict:
 
 COHORT = 3       # clients of a cohort on the paths that run B8 (K = 10, C = 0.3)
 UQP_GRID = 20    # grid points of the UQ+ clip search (bench/common.py's method grid)
+
+
+def qat_pair_case(K, R, label, x, a, gr, worst) -> None:
+    """B1 and B2 on ``x`` at clip ``a`` (None: 0.8 max|x|) under cotangent
+    ``gr``, against their twins: B1 with at most TIE_FRAC of its elements
+    apart (adjacent-grid ties), B2's gx bitwise, its clip cotangent within
+    GA_RTOL."""
+    shape = tuple(x.shape)
+    a = x.abs().max() * 0.8 if a is None else a
+    n = x.numel()
+    bad, err = mismatches(K.quant_det(x, a), R.quant_det(x, a))
+    worst["quant_det"] = max(worst["quant_det"], err)
+    check(bad <= TIE_FRAC * n, f"quant_det {label} {shape}: {bad} of {n} differ")
+    gx, ga = K.quant_det_bwd(x, a, gr)
+    rgx, rga = R.quant_det_bwd(x, a, gr)
+    bad, err = mismatches(gx, rgx)
+    rel = abs(float(ga) - float(rga)) / max(abs(float(rga)), 1e-30)
+    worst["quant_det_bwd"] = max(worst["quant_det_bwd"], err, abs(float(ga) - float(rga)))
+    check(bad == 0, f"quant_det_bwd gx {label} {shape}: {bad} of {n} differ")
+    check(rel <= GA_RTOL, f"quant_det_bwd g_alpha {label} {shape}: rel err {rel:.3g}")
+    print(f"[kernels] quant_det/bwd {label} {shape}: g_alpha kernel {float(ga):.9g} "
+          f"twin {float(rga):.9g} rel {rel:.3g}")
+
+
+def tile_case(K, R, label, x, col, key, worst) -> None:
+    """The wire pair and B5 on the tiles ``x`` at the alpha column ``col``
+    and per element, det and rand (``key``): bitwise their twins, B5 within
+    1 f32 ULP of the wire's encode -> decode."""
+    for a2 in (col, col.expand(x.shape).contiguous()):
+        for k2 in (None, key):
+            lab = f"{label} a{tuple(a2.shape)} {'rand' if k2 is not None else 'det'}"
+            c = K.quant_pack_tiles(x, a2, k2)
+            bad, err = mismatches(c, R.quant_pack_tiles(x, a2, k2))
+            worst["quant_pack_tiles"] = max(worst["quant_pack_tiles"], err)
+            check(bad == 0, f"quant_pack_tiles {lab}: {bad} codes differ")
+            wire_vals = K.unpack_tiles(c, a2)
+            bad, err = mismatches(wire_vals, R.unpack_tiles(c, a2))
+            worst["unpack_tiles"] = max(worst["unpack_tiles"], err)
+            check(bad == 0, f"unpack_tiles {lab}: {bad} values differ")
+            q = K.fake_quant_tiles(x, a2, k2)
+            bad, err = mismatches(q, R.fake_quant_tiles(x, a2, k2))
+            worst["fake_quant_tiles"] = max(worst["fake_quant_tiles"], err)
+            check(bad == 0, f"fake_quant_tiles {lab}: {bad} values differ")
+            aw = wire_vals.abs()
+            ulp = torch.nextafter(aw, torch.full_like(aw, math.inf)) - aw
+            check(bool(((q - wire_vals).abs() <= ulp).all()),
+                  f"fake_quant_tiles {lab}: not within 1 ULP of the wire transit")
+    print(f"[kernels] tile kernels {label} {tuple(x.shape)}: det and rand, "
+          f"alpha column and per element: ok")
+
+
+def paper_kernel_cases(dev, K, R, key, worst) -> int:
+    """Phase 2's checks at phase 9's shapes, from a generator of their own
+    (the earlier cases' draws stay as they were): for cifar10-resnet and
+    speech-matchbox, B1/B2 at every QAT site shape (``PAPER_ACT_SHAPES``
+    and the weights, random inputs), on the init weights at their own
+    alpha and on a batch of the task's data at the first site's beta; the
+    wire pair and B5 on random tiles at the model's plane shape and on its
+    real plane (175 and 62 rows) with its own alpha column; B5's clip search
+    (G = 20) on the real plane (``cohort_launch_cases``)."""
+    from repro_torch import tree
+    from repro_torch.bench import common
+    from repro_torch.core import plane, wire
+
+    g = torch.Generator().manual_seed(27)
+
+    def randn(shape, scale):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    planes = []
+    for task_name, acts in PAPER_ACT_SHAPES.items():
+        task = common.TASKS[task_name]
+        params, _ = common.make_model(task, 0, dev)
+        flat = dict(tree.flatten(params))
+        weights = [(name, w, flat[name + "_qa"]) for name, w in flat.items()
+                   if name.endswith(".w") and name + "_qa" in flat]
+        cases = [(f"{task_name} random", randn(s, 0.3), None)
+                 for s in acts + sorted({tuple(w.shape) for _, w, _ in weights})]
+        cases += [(f"{task_name} {name}", w, a) for name, w, a in weights]
+        data = torch.from_numpy(common.make_data(task, 32, 1)[0][0]).to(dev)
+        cases.append((f"{task_name} data", data, params["stem"]["x_qb"]))
+        for label, x, a in cases:
+            qat_pair_case(K, R, label, x, a, randn(tuple(x.shape), 1.0).abs() * torch.sign(x),
+                          worst)
+        spec, wspec = plane.make_plane_spec(params), wire.make_wire_spec(params)
+        check(wspec.alpha_cols_ok and wspec.n_rows == spec.n_rows == PAPER_PLANE_ROWS[task_name]
+              and wspec.q_names == spec.q_names, f"{task_name}: wire tiles != plane")
+        w2, alphas = plane.pack_tiles(params, spec)
+        col = plane.alpha_column(alphas, spec)
+        x = randn(tuple(w2.shape), 0.2)
+        tile_case(K, R, f"{task_name} random", x, x.abs().amax(dim=1, keepdim=True) * 0.9, key,
+                  worst)
+        tile_case(K, R, f"{task_name} plane", w2, col, key, worst)
+        planes.append((f"{task_name} plane", w2, col))
+        print(f"[kernels] {task_name}: {len(weights)} weight sites, activation shapes {acts}, "
+              f"plane/wire tiles {tuple(w2.shape)} in {spec.n_seg} segments")
+    return cohort_launch_cases(dev, K, R, [], planes, key, worst)
 
 
 def _perturbed_stack(x2, n):
@@ -1032,12 +1143,15 @@ def _small_round(model: str, device: str, draws, qcfg, **cfg_kw):
     from repro_torch.core.engine import FedConfig
     from repro_torch.core.fedsim import FedSim
     from repro_torch.core.qat import clip_value_mask, weight_decay_mask
-    from repro_torch.data import partition_iid, synthetic_classification, synthetic_images
+    from repro_torch.data import (partition_iid, synthetic_classification, synthetic_images,
+                                  synthetic_sequences)
     from repro_torch.models import small
 
     init, apply = small.REGISTRY[model]
     if model == "mlp":
         x, y = synthetic_classification(0, 400, d=32, n_classes=10, noise=1.0)
+    elif model == "matchbox":
+        x, y = synthetic_sequences(0, 160, n_classes=35, noise=0.9)
     else:
         x, y = synthetic_images(0, 160, n_classes=10, noise=0.45)
     cx, cy, nk = partition_iid(x, y, k=4, seed=0)
@@ -1069,7 +1183,6 @@ def round_phase(dev) -> None:
     gradient. There the loss is held to rtol 2e-2 and each quantized weight
     to one top-bin grid step (alpha / 15), the size of a wrong code; the
     count beyond the strict tolerance is printed."""
-    from repro_torch import tree
     from repro_torch.core.qat import QATConfig
     from repro_torch.core.server_opt import ServerOptConfig
 
@@ -1085,29 +1198,52 @@ def round_phase(dev) -> None:
             ("mlp", "mlp rand-qat", QATConfig(mode="rand"), True, {}),
             ("mlp", "mlp fp4 delayed:4", QATConfig(), True, fp4_delayed),
             ("mlp", "mlp fp4 + delta:fp4 up", QATConfig(), True, fp4_delta)):
-        cpu_sim, cpu_hist, draws = _small_round(model, "cpu", None, qcfg, **kw)
-        gpu_sim, gpu_hist, _ = _small_round(model, dev, draws, qcfg, **kw)
-        ref = dict(tree.flatten(cpu_sim.params))
-        n_bad = n_all = 0
-        step_ok = True
-        for name, v in tree.flatten(gpu_sim.params):
-            r, v = ref[name].double(), v.cpu().double()
-            d = (v - r).abs()
-            n_bad += int((d > 1e-5 + 1e-4 * r.abs()).sum())
-            n_all += r.numel()
-            qa = name.rsplit(".", 1)[0] + ".w_qa"
-            if name.endswith(".w") and qa in ref:
-                step_ok &= float(d.max()) <= float(ref[qa]) / 15 + 1e-5
-        print(f"[round] {label}: card vs CPU twins: bytes {gpu_hist.cumulative_bytes[0]} "
-              f"vs {cpu_hist.cumulative_bytes[0]}, loss {gpu_hist.loss[0]:.7f} vs "
-              f"{cpu_hist.loss[0]:.7f}, {n_bad} of {n_all} params beyond 1e-5 + 1e-4|ref|")
-        check(gpu_hist.cumulative_bytes == cpu_hist.cumulative_bytes, f"{label}: bytes")
-        check(step_ok, f"{label}: a weight is off by more than a grid step")
-        if strict:
-            check(n_bad <= max(1, 1e-3 * n_all), f"{label}: {n_bad} of {n_all} differ")
-        check(math.isclose(gpu_hist.loss[0], cpu_hist.loss[0],
-                           rel_tol=1e-5 if strict else 2e-2),
-              f"{label}: loss {gpu_hist.loss[0]} vs cpu {cpu_hist.loss[0]}")
+        card_vs_cpu_round(dev, model, label, qcfg, strict, kw)
+
+
+def card_vs_cpu_round(dev, model: str, label: str, qcfg, strict: bool, kw: dict,
+                      leaf_bars: tuple | None = None) -> None:
+    """One small round of ``model`` on the card against the same round on
+    the CPU twins (``round_phase``'s draws and tolerances; ``strict`` False:
+    the FP8-tie bars). Every leaf that is not a quantized weight is read
+    too: the worst absolute difference among the clip values (``*_qa``,
+    ``*_qb``) and among the rest (biases, GroupNorm, LayerNorm) is printed,
+    and held to ``leaf_bars`` = (clip, rest) where given."""
+    from repro_torch import tree
+
+    cpu_sim, cpu_hist, draws = _small_round(model, "cpu", None, qcfg, **kw)
+    gpu_sim, gpu_hist, _ = _small_round(model, dev, draws, qcfg, **kw)
+    ref = dict(tree.flatten(cpu_sim.params))
+    n_bad = n_all = 0
+    worst_step = worst_clip = worst_rest = 0.0
+    for name, v in tree.flatten(gpu_sim.params):
+        r, v = ref[name].double(), v.cpu().double()
+        d = (v - r).abs()
+        n_bad += int((d > 1e-5 + 1e-4 * r.abs()).sum())
+        n_all += r.numel()
+        qa = name.rsplit(".", 1)[0] + ".w_qa"
+        if name.endswith(".w") and qa in ref:
+            worst_step = max(worst_step, (float(d.max()) - 1e-5) / (float(ref[qa]) / 15))
+        elif name.endswith(("_qa", "_qb")):
+            worst_clip = max(worst_clip, float(d.max()))
+        else:
+            worst_rest = max(worst_rest, float(d.max()))
+    bars = "" if leaf_bars is None else f" (bars {leaf_bars[0]:g}, {leaf_bars[1]:g})"
+    print(f"[round] {label}: card vs CPU twins: bytes {gpu_hist.cumulative_bytes[0]} "
+          f"vs {cpu_hist.cumulative_bytes[0]}, loss {gpu_hist.loss[0]:.7f} vs "
+          f"{cpu_hist.loss[0]:.7f}, {n_bad} of {n_all} params beyond 1e-5 + 1e-4|ref|, "
+          f"worst weight {max(worst_step, 0.0):.3f} of a top-bin grid step, "
+          f"worst clip value {worst_clip:.3g}, worst other leaf {worst_rest:.3g}{bars}")
+    check(gpu_hist.cumulative_bytes == cpu_hist.cumulative_bytes, f"{label}: bytes")
+    check(worst_step <= 1.0, f"{label}: a weight is off by more than a grid step")
+    if strict:
+        check(n_bad <= max(1, 1e-3 * n_all), f"{label}: {n_bad} of {n_all} differ")
+    if leaf_bars is not None:
+        check(worst_clip <= leaf_bars[0], f"{label}: a clip value is off by {worst_clip:.3g}")
+        check(worst_rest <= leaf_bars[1], f"{label}: a bias or norm leaf is off by "
+              f"{worst_rest:.3g}")
+    check(math.isclose(gpu_hist.loss[0], cpu_hist.loss[0], rel_tol=1e-5 if strict else 2e-2),
+          f"{label}: loss {gpu_hist.loss[0]} vs cpu {cpu_hist.loss[0]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1612,7 +1748,8 @@ def grid_phase(dev) -> dict:
         check(r["bytes_per_round"] == want,
               f"{r['task']} {r['method']}: bytes/round {r['bytes_per_round']} != {want}")
         check(0.0 <= r["final_acc"] <= 1.0, f"{r['task']} {r['method']}: accuracy")
-    check(len(rows) == len(GRID_BYTES) * 2, f"{len(rows)} grid rows")
+    check(len(rows) == len(table1.TABLE1_TASKS) * 2 * len(table1.TABLE1_METHODS),
+          f"{len(rows)} grid rows")
     print(f"[grid] table1: {len(rows)} cells in {time.perf_counter() - t0:.1f} s")
 
     # Table 2's stochastic-QAT cell and the same QAT with the rand wire
@@ -1648,6 +1785,114 @@ def grid_phase(dev) -> dict:
             "device_us": {name: next((v for k, v in per_launch.items()
                                       if k.split("<")[0] == name + "_kernel"), None)
                           for name in ("quant_rand", "quant_rand_bwd")}}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's ResNet and MatchboxNet, the quickstart and Figure 2
+# ---------------------------------------------------------------------------
+
+PAPER_PROFILED = ("cifar10-resnet", "uq+")
+WIRE_ROUTE = {"quant_pack_kernel": "B3 16-element (one wave or more)",
+              "quant_pack_elem_kernel": "B3 first port's, one element a thread (below a wave)",
+              "unpack_kernel": "B4 16-element (one wave or more)",
+              "unpack_elem_kernel": "B4 first port's, one element a thread (below a wave)"}
+
+
+def paper_phase(dev) -> dict:
+    """The paths this slice adds, each driven with the counters zeroed just
+    before and read just after: Table 1 on cifar10-resnet and
+    speech-matchbox (iid and Dir(0.3) x fp32/uq/uq+, ``PAPER_GRID_ROUNDS``
+    rounds), every row's bytes the reference's integer; one profiled
+    cifar10-resnet uq+ round (s/round, device busy, device us a launch of
+    B1-B5 at ResNet's shapes, the B3/B4 route its 175-row plane takes); one
+    round of each new model on the card against the CPU twins (FP8-tie
+    bars, ``PAPER_LEAF_BARS``); the quickstart at its 40 rounds and Figure 2 at the reference
+    driver's CPU-budget scale, bytes the reference's integers. Returns the
+    wire launches of each path."""
+    from repro_torch.bench import fig2, quickstart, table1
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import fp8_quant as K
+
+    t_phase = time.perf_counter()
+    launches = {}
+    K.reset_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    rows = table1.run(tasks=PAPER_TASKS, device=dev, scale=dict(rounds=PAPER_GRID_ROUNDS),
+                      eval_every=GRID_EVAL_EVERY)
+    synchronize()
+    launches[f"table1 {'/'.join(PAPER_TASKS)} ({PAPER_GRID_ROUNDS} rounds)"] = dict(K.LAUNCHES)
+    for r in rows:
+        want = GRID_BYTES[(r["task"], r["method"])]
+        print(f"[paper] table1 {r['task']:15s} {r['setting']:6s} {r['method']:4s} "
+              f"{PAPER_GRID_ROUNDS} rounds: final_acc {r['final_acc']:.4f} bytes/round "
+              f"{r['bytes_per_round']} comm_gain {r['comm_gain']} wall {r['wall_s']:.2f} s")
+        check(r["bytes_per_round"] == want,
+              f"{r['task']} {r['method']}: bytes/round {r['bytes_per_round']} != {want}")
+        check(0.0 <= r["final_acc"] <= 1.0, f"{r['task']} {r['method']}: accuracy")
+    check(len(rows) == len(PAPER_TASKS) * 2 * len(table1.TABLE1_METHODS), f"{len(rows)} rows")
+    for name in PATH_KERNELS["uq+"]:
+        check(launches[next(iter(launches))][name] > 0, f"{name} not launched on phase 9's grid")
+    print(f"[paper] table1: {len(rows)} cells in {time.perf_counter() - t0:.1f} s")
+
+    # one profiled cifar10-resnet uq+ round, after a warm one and a timed one
+    task_name, method = PAPER_PROFILED
+    sim, cfg, _ = _make_sim(dev, task_name, method, table1.CPU_BUDGET)
+    sim.run(1, seed=0)
+    synchronize()
+    t0 = time.perf_counter()
+    sim.run(1, seed=2)
+    synchronize()
+    s_round = time.perf_counter() - t0
+    print(f"[paper] {task_name} {method} K={cfg.n_clients} P={cfg.clients_per_round} "
+          f"U={cfg.local_steps} B={cfg.batch_size}: {s_round:.3f} s/round")
+    per_launch = profile_round(sim, s_round, f"{task_name} {method}")
+    routes = sorted({WIRE_ROUTE[k.split("<")[0]] for k in per_launch
+                     if k.split("<")[0] in WIRE_ROUTE})
+    print(f"[paper] {task_name}'s {PAPER_PLANE_ROWS[task_name]}-row wire plane takes: "
+          f"{'; '.join(routes)}")
+    check(any(r.startswith("B3") for r in routes) and any(r.startswith("B4") for r in routes),
+          f"{task_name}: no B3/B4 kernel seen in the profiled round")
+
+    # one round of each new model, card against CPU twins (FP8-tie bars,
+    # and PAPER_LEAF_BARS on the leaves that are not quantized weights)
+    for model in ("resnet", "matchbox"):
+        card_vs_cpu_round(dev, model, f"{model} uq", QATConfig(), False, {},
+                          PAPER_LEAF_BARS[model])
+
+    # the quickstart and Figure 2
+    K.reset_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    qs = quickstart.run(device=dev)
+    synchronize()
+    launches["quickstart"] = dict(K.LAUNCHES)
+    for r in qs:
+        print(f"[paper] quickstart {r['method']:13s} {quickstart.ROUNDS} rounds: best accuracy "
+              f"{r['best_accuracy']:.4f} bytes/round {r['bytes_per_round']} cumulative "
+              f"{r['cumulative_bytes'][-1]} wall {r['wall_s']:.2f} s")
+        want = QUICKSTART_BYTES[r["method"]]
+        check(r["bytes_per_round"] == want
+              and r["cumulative_bytes"] == [rd * want for rd in r["rounds"]],
+              f"quickstart {r['method']}: bytes {r['bytes_per_round']} != {want}")
+    print(f"[paper] quickstart: {time.perf_counter() - t0:.1f} s")
+    K.reset_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    f2 = fig2.run(device=dev)
+    synchronize()
+    launches["fig2 cifar100-mlp"] = dict(K.LAUNCHES)
+    for label in FIG2_BYTES:
+        curve = [r for r in f2 if r["method"] == label]
+        want = FIG2_BYTES[label]
+        check(all(r["bytes_per_round"] == want and r["cumulative_bytes"] == r["round"] * want
+                  for r in curve) and len(curve) == fig2.CPU_BUDGET["rounds"]
+              // fig2.CPU_BUDGET["eval_every"], f"fig2 {label}: bytes or rounds")
+        print(f"[paper] fig2 {label:4s}: acc " + " ".join(f"{r['acc']:.4f}" for r in curve)
+              + f" at {curve[-1]['mbytes']} MB after {curve[-1]['round']} rounds "
+              f"({want} bytes a round), wall {curve[-1]['wall_s']:.2f} s")
+    print(f"[paper] fig2: {time.perf_counter() - t0:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "s_per_round": s_round, "device_us": per_launch}
 
 
 # ---------------------------------------------------------------------------
@@ -2256,12 +2501,14 @@ def trainer_kernel_phase(dev) -> dict:
         for a2 in (c, c.expand(shape).contiguous()):
             for k2 in (None, key):
                 q, mx = K.fake_quant_amax_tiles(x, a2, k2)
-                bad, err = mismatches(q, R.fake_quant_amax_tiles(x, a2, k2)[0])
+                rq, rmx = R.fake_quant_amax_tiles(x, a2, k2)
+                bad, err = mismatches(q, rq)
                 worst["fake_quant_amax_tiles"] = max(worst["fake_quant_amax_tiles"], err)
                 check(bad == 0 and torch.equal(q, K.fake_quant_tiles(x, a2, k2)),
                       f"fake_quant_amax_tiles {label} a{tuple(a2.shape)}: values != B5")
-                check(torch.equal(mx, torch.amax(x.abs(), 1, keepdim=True)),
-                      f"fake_quant_amax_tiles {label}: rowmax != torch.amax")
+                check(torch.equal(mx, rmx) and torch.equal(mx, torch.amax(x.abs(), 1,
+                                                                          keepdim=True)),
+                      f"fake_quant_amax_tiles {label}: rowmax != the twin's or torch.amax")
         n, rows = x.numel(), shape[0]
         b_ms, b_by = bound(8 * n + 8 * rows + 8, 40 * n)
         b9_timings[label] = dict(ms=time_ms(lambda: K.fake_quant_amax_tiles(x, c, key)),
@@ -2324,7 +2571,7 @@ def b9_path_phase(dev) -> dict:
     """B9's only caller, ``dispatch.fake_quant_amax_plane`` (the reference
     calls it from nowhere), forward and backward on LeNet's real plane with
     the counters zeroed just before and read just after: one launch, the
-    values B5's, the backward B5's STE."""
+    values B5's, the backward B5's STE; then its device time a call."""
     from repro_torch.bench import common
     from repro_torch.core import plane
     from repro_torch.kernels import dispatch
@@ -2354,22 +2601,22 @@ def b9_path_phase(dev) -> dict:
           f"fake_quant_amax_plane launches {launches}")
     print(f"[b9] dispatch.fake_quant_amax_plane on LeNet's plane {tuple(w2.shape)}: 1 launch, "
           f"values and STE gradients equal to fake_quant_plane's (B5)")
-    # one more call under the profiler, for B9's device time a launch
-    from torch.profiler import ProfilerActivity, profile
+    # B9's device time a launch: 50 more calls under the profiler after the
+    # lead-in (a trace without one lost this call's only record, ROADMAP §3
+    # mechanism 9), the fake_quant_amax_kernel records of them, over 50;
+    # where the profiler gave none, the calls' stream time, so labelled
+    import qat_probe
 
-    synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dispatch.fake_quant_amax_plane(w2, col, key)
-        synchronize()
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and "fake_quant_amax_kernel" in e.key]
-    device_us = (sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
-                 / max(sum(e.count for e in rows), 1)) if rows else None
-    print(f"[b9] profiled call: fake_quant_amax_kernel "
-          f"{'not seen by the profiler' if device_us is None else f'{device_us:.2f} us'} of "
-          "device time a launch")
-    return {"launches": launches, "device_us": device_us}
+    n_fallbacks = len(qat_probe.FALLBACKS)
+    device_us = qat_probe.device_us(lambda: dispatch.fake_quant_amax_plane(w2, col, key),
+                                    kernel="fake_quant_amax_kernel")
+    timing = "device_us" if len(qat_probe.FALLBACKS) == n_fallbacks else "stream_us"
+    what = ("us of device time a call (fake_quant_amax_kernel, one launch a call)"
+            if timing == "device_us" else
+            "us of STREAM time a call (the profiler gave no device records; every kernel "
+            "of the call and the gaps between them count)")
+    print(f"[b9] profiled calls: {device_us:.2f} {what}")
+    return {"launches": launches, timing: device_us}
 
 
 def _train_step_grads(model, p, batch, qcfg, opt_level, accum, where, per_leaf=False):
@@ -2657,6 +2904,7 @@ def main() -> int:
     trainer = trainer_main_path_phase(dev)
     fmt = format_phase(dev)
     grid = grid_phase(dev)
+    paper = paper_phase(dev)
 
     def path(name: str) -> tuple[str, int]:
         if name in TRAIN_KERNELS:
@@ -2685,6 +2933,11 @@ def main() -> int:
     for name, want in WIRE_LAUNCH_TOTALS.items():
         check(totals[name]["all_paths"] == want,
               f"[launches] {name}: {totals[name]['all_paths']} over every path, not {want}")
+    paper_totals = {name: {"all_paths": sum(v[name] for v in paper["launches"].values()),
+                           "by_path": {p: v[name] for p, v in paper["launches"].items()
+                                       if v[name]}}
+                    for name in WIRE_KERNELS}
+    print(f"[launches] wire kernels over phase 9's paths: {json.dumps(paper_totals)}")
 
     rows = []
     for name in K.KERNELS:
@@ -2707,7 +2960,8 @@ def main() -> int:
             tt = trainer_kern["timings"]
             t = tt["full"][name] if name in TRAIN_KERNELS else tt[name]["main"]
             extra = ({"device_us": trainer["device_us"].get(name)} if name in TRAIN_KERNELS
-                     else {"large": tt[name]["large"], "device_us": b9["device_us"]})
+                     else {"large": tt[name]["large"],
+                           **{k: v for k, v in b9.items() if k != "launches"}})
             rows.append({
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """What bounds the QAT kernels B1/B2, the stochastic pair B6, the FP8 wire
-pair B3/B4, and the batched launches of B8, B5 and B9's amax encode on the
-card.
+pair B3/B4, the batched launches of B8, B5 and B9's amax encode, and B9's
+fake-quant with its row max on the card.
 
 Run from the repository root:
-python3 qat_probe.py [--src DIR] [--b6 | --wire | --sub-fq | --sub-dec]
+python3 qat_probe.py [--src DIR] [--b6 | --wire | --sub-fq | --sub-dec | --b9 | --ga]
 
 At the one-device trainer's bf16 activation shapes (batch 8 x 128 tokens:
 (8, 128, 2048), (8, 128, 5632), and a CE chunk's (8, 16, 2048)), at f32
@@ -95,6 +95,27 @@ differ from this checkout's twins. At P = 1 the single-plane wrappers
 ``quant_pack_sub_amax_tiles``) are timed too, on the same plane (device us
 and host ms a call).
 
+With ``--b9``, only B9 ``fake_quant_amax_tiles`` (:func:`b9_cases`) as the
+trainer's ``dispatch.fake_quant_amax_plane`` calls it: on cifar10-lenet's
+real plane (135, 1024) at its own alpha column and on a random (8191,
+1024), det and rand, alpha as an (R, 1) column and as (R, 1024). Each case
+prints device us a call (profiler), host ms a call, the wrapper launches a
+call, the bytes bound (x read once, values written once, alphas, row
+maxima and the key) and the share of it reached, and counts the values and
+row maxima that differ from this checkout's twin and the values that differ
+from B5 ``fake_quant_tiles`` on the same inputs.
+
+With ``--ga``, only B2 ``quant_det_bwd``'s scalar clip cotangent
+(:func:`ga_cases`) against its f64 sum, on the cases of ``chip_smoke.py``'s
+phase 2 at speech-kwt's (64, 64): random x at 0.3 clipped at 0.8 max|x|,
+and each (64, 64) init weight at its own alpha, every draw a new cotangent
+signed like x (and a new x for the random case). For each case it counts
+the draws whose kernel result lies more than GA_RTOL (1e-5) from the
+twin's, and says which of the two f32 sums lies nearer the f64 sum there
+and over all draws; it prints the worst error of each on the terms'
+magnitude sum (``ref.clip_within_bar``'s measure) and the worst
+cancellation (the magnitude sum over the result).
+
 ``--b6`` runs only the B6 part. With ``--src DIR`` it times the kernels of
 the package under ``DIR/src`` instead (for example an unpacked parent
 commit), and runs only the probes and routes that package has. Needs a
@@ -167,10 +188,12 @@ def _counted_rows(prof):
     return [e for e in rows if "spin_kernel" not in e.key]
 
 
-def device_us(fn, iters: int = 50) -> float:
+def device_us(fn, iters: int = 50, kernel: str | None = None) -> float:
     """Device time a call of ``fn``, us: the summed self device time of
     every CUDA kernel ``iters`` calls launched (torch.profiler, after the
-    lead-in), over ``iters``."""
+    lead-in), or of those whose name holds ``kernel``, over ``iters``.
+    Where five profiles in a row come back without such records, the call's
+    stream time instead (``stream_us``), and ``fn`` is noted in FALLBACKS."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -181,8 +204,8 @@ def device_us(fn, iters: int = 50) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = _counted_rows(prof)
-        total = sum(getattr(e, "self_device_time_total", 0.0) for e in rows or ())
+        rows = [e for e in _counted_rows(prof) or () if kernel is None or kernel in e.key]
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
         if total > 0:
             return total / iters
         time.sleep(0.1)
@@ -974,6 +997,120 @@ def sub_dec_cases(dev, K, R, verbose: bool = True) -> dict:
     return res
 
 
+B9_SHAPES = ("cifar10-lenet", (8191, 1024))   # LeNet's real plane, then a random one
+
+
+def b9_cases(dev, K, R, verbose: bool = True) -> dict:
+    """B9 ``fake_quant_amax_tiles`` as the trainer's ``fake_quant_amax_plane``
+    calls it (module docstring, ``--b9``), on LeNet's real plane (135, 1024)
+    at its own alpha column and on a random (8191, 1024) at 0.9 x each row's
+    max, det and rand, alpha as an (R, 1) column and as (R, 1024): device us
+    and host ms a call, launches, the bytes bound, and the values and row
+    maxima that differ from this checkout's twin and from B5's kernel."""
+    import torch
+
+    from repro_torch.bench import common
+    from repro_torch.core import plane
+
+    g = torch.Generator().manual_seed(27)
+    key = key_rows(1, dev, 27)[0]
+    res = {"b9": {}}
+    planes = []
+    for shape in B9_SHAPES:
+        if isinstance(shape, str):
+            params, _ = common.make_model(common.TASKS[shape], 0, dev)
+            spec = plane.make_plane_spec(params)
+            x2, alphas = plane.pack_tiles(params, spec)
+            planes.append((shape, x2, plane.alpha_column(alphas, spec)))
+        else:
+            x2 = (torch.randn(shape, generator=g) * 0.2).to(dev)
+            planes.append(("random", x2, x2.abs().amax(dim=1, keepdim=True) * 0.9))
+    for label, x2, col in planes:
+        for layout, a2 in (("column", col), ("full", col.expand(x2.shape).contiguous())):
+            for rnd, k2 in (("det", None), ("rand", key)):
+                def call(x2=x2, a2=a2, k2=k2):
+                    return K.fake_quant_amax_tiles(x2, a2, k2)
+                q, mx = call()
+                wq, wm = R.fake_quant_amax_tiles(x2, a2, k2)
+                bad = _differ(q, wq) + _differ(mx, wm)
+                bad_b5 = _differ(q, K.fake_quant_tiles(x2, a2, k2))
+                n, rows = x2.numel(), x2.shape[0]
+                n_bytes = 8 * n + 4 * a2.numel() + 4 * rows + (8 if k2 is not None else 0)
+                case = f"{label} ({rows}, 1024) {layout} {rnd}"
+                r = {**_timed(call, K.LAUNCHES), "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6,
+                     "bad": bad, "bad_b5": bad_b5}
+                r["fraction"] = r["bound_us"] / r["device_us"]
+                res["b9"][case] = r
+                if verbose:
+                    print(f"[b9] {case}: device {r['device_us']:.3f} us, host "
+                          f"{r['call_ms'] * 1e3:.2f} us a call, {r['launches']} launches, "
+                          f"bound {r['bound_us']:.3f} us ({100 * r['fraction']:.1f}%), "
+                          f"{bad} values or maxima differ from the twin, {bad_b5} values "
+                          f"from B5")
+    res["all_bitwise"] = all(r["bad"] == 0 and r["bad_b5"] == 0 for r in res["b9"].values())
+    res["profiler_fallbacks"] = len(FALLBACKS)
+    if verbose:
+        print(f"[b9] every call bitwise this checkout's twin and B5: {res['all_bitwise']}")
+    return res
+
+
+GA_RTOL, GA_DRAWS = 1e-5, 500   # chip_smoke.py's bar on B2's g_alpha; draws a case
+
+
+def ga_cases(dev, K, R, draws: int = GA_DRAWS, verbose: bool = True) -> dict:
+    """B2's g_alpha, kernel and twin, against the f64 sum of its terms on
+    the cases of the module docstring's ``--ga``: per case the draws over
+    GA_RTOL, which side lies nearer the f64 sum there and over all draws,
+    the worst errors on the magnitude sum and the worst cancellation."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.bench import common
+
+    g = torch.Generator().manual_seed(27)
+    params, _ = common.make_model(common.TASKS["speech-kwt"], 0, dev)
+    flat = dict(tree.flatten(params))
+    cases = [("random", None, None)] + [
+        (name, w, flat[name + "_qa"]) for name, w in flat.items()
+        if name.endswith(".w") and name + "_qa" in flat and tuple(w.shape) == (64, 64)]
+    res = {}
+    for label, w, alpha in cases:
+        r = dict(draws=draws, over_bar=0, over_bar_kernel_nearer=0, kernel_nearer=0,
+                 twin_nearer=0, equal=0, worst_rel=0.0, worst_kernel_on_mag=0.0,
+                 worst_twin_on_mag=0.0, worst_cancellation=0.0)
+        for _ in range(draws):
+            x = (torch.randn((64, 64), generator=g) * 0.3).to(dev) if w is None else w
+            a = x.abs().max() * 0.8 if alpha is None else alpha
+            gr = torch.randn((64, 64), generator=g).abs().to(dev) * torch.sign(x)
+            kern = float(K.quant_det_bwd(x, a, gr)[1])
+            twin = float(R.quant_det_bwd(x, a, gr)[1])
+            exact, mag = R.quant_det_clip_f64(x, a, gr)
+            ek, et = abs(kern - exact), abs(twin - exact)
+            rel = abs(kern - twin) / max(abs(twin), 1e-30)
+            r["worst_rel"] = max(r["worst_rel"], rel)
+            r["worst_kernel_on_mag"] = max(r["worst_kernel_on_mag"], ek / mag)
+            r["worst_twin_on_mag"] = max(r["worst_twin_on_mag"], et / mag)
+            r["worst_cancellation"] = max(r["worst_cancellation"], mag / max(abs(exact), 1e-30))
+            side = "kernel_nearer" if ek < et else "twin_nearer" if et < ek else "equal"
+            r[side] += 1
+            if rel > GA_RTOL:
+                r["over_bar"] += 1
+                r["over_bar_kernel_nearer"] += ek < et
+                if verbose:
+                    print(f"[ga] {label}: kernel {kern:.9g} twin {twin:.9g} f64 {exact:.12g} "
+                          f"(rel {rel:.3g}; kernel off {ek:.3g}, twin off {et:.3g}, "
+                          f"magnitude sum {mag:.6g})")
+        res[label] = r
+        if verbose:
+            print(f"[ga] {label}: {draws} draws, {r['over_bar']} over GA_RTOL "
+                  f"({r['over_bar_kernel_nearer']} with the kernel nearer the f64 sum); "
+                  f"kernel nearer {r['kernel_nearer']}, twin nearer {r['twin_nearer']}, "
+                  f"equal {r['equal']}; worst on the magnitude sum kernel "
+                  f"{r['worst_kernel_on_mag']:.3g} twin {r['worst_twin_on_mag']:.3g}; worst "
+                  f"rel {r['worst_rel']:.3g}; worst cancellation {r['worst_cancellation']:.4g}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1002,6 +1139,10 @@ def main() -> int:
         res = {"sub_fq": sub_fq_cases(dev, K, R)}
     elif "--sub-dec" in sys.argv[1:]:
         res = {"sub_dec": sub_dec_cases(dev, K, R)}
+    elif "--b9" in sys.argv[1:]:
+        res = {"b9": b9_cases(dev, K, R)}
+    elif "--ga" in sys.argv[1:]:
+        res = {"ga": ga_cases(dev, K, R)}
     else:
         res = {} if "--b6" in sys.argv[1:] else measure(dev, K)
         res["b6"] = measure_b6(dev)

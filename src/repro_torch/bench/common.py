@@ -4,8 +4,9 @@ method grid, the port of ``benchmarks/common.py``.
 Tasks are synthetic matched-dimension stand-ins for the paper's datasets
 (numpy generators of ``repro_torch.data``, draw for draw those of the
 reference); models are initialised from ``seed`` with torch, so their
-random weights are not the reference's. Only the tasks whose models are
-ported are listed (no ResNet or MatchboxNet yet).
+random weights are not the reference's. Every task of the reference is
+here: the paper's CIFAR10/100 with LeNet or ResNet (and the MLP), and
+SpeechCommands with MatchboxNet or KWT.
 """
 from __future__ import annotations
 
@@ -40,8 +41,10 @@ TASKS = {
     # lr 0.05 (paper: 0.1), as the reference: full W+A QAT at 0.1 sits past
     # the stability edge on the synthetic mini-setup
     "cifar10-lenet": Task("cifar10-lenet", "lenet", "image", 10, "sgd", 0.05),
+    "cifar10-resnet": Task("cifar10-resnet", "resnet", "image", 10, "sgd", 0.05),
     "cifar100-lenet": Task("cifar100-lenet", "lenet", "image", 100, "sgd", 0.05),
     "cifar100-mlp": Task("cifar100-mlp", "mlp", "vector", 100, "sgd", 0.05),
+    "speech-matchbox": Task("speech-matchbox", "matchbox", "sequence", 35, "adamw", 1e-3),
     "speech-kwt": Task("speech-kwt", "kwt", "sequence", 35, "adamw", 1e-3),
 }
 

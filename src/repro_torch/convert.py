@@ -5,7 +5,8 @@ The port keeps the reference's param keys (``w``, ``w_qa``, ``x_qb``, ``b``,
 ``(d_in, d_out)``, conv HWIO, KWT's ``(T + 1, D)`` positions and ``(1, 1, D)``
 class token), so a reference param tree converted to numpy
 (``jax.tree.map(np.asarray, p)``) maps one to one onto the port's dict of
-tensors, and the wire's flat leaf order and bytes line up. The MLP, LeNet
+tensors, and the wire's flat leaf order and bytes line up. The MLP, LeNet,
+ResNet, MatchboxNet (1-D conv weights WIO, its depthwise ones (k, 1, C))
 and KWT trees all convert this way.
 """
 from __future__ import annotations

@@ -35,9 +35,17 @@
 // x loaded once and G outputs written, each slice's coalesced; on the column
 // the block's G clips, their biases log2f(alpha) and keys are staged once
 // in shared memory (256 slices at a time), not once an element a slice. B9
-// one 256-thread block per 1024-lane row, the row max reduced by
-// reduce.cuh's fixed fmaxf tree (exact in any order), as the first port of
-// quant_pack_amax.cu did. The uniform is made in registers, so no random operand is read.
+// on the design of quant_pack_amax.cu: one 256-thread block a 1024-lane row,
+// one float4 of x a thread (and one of alpha on the (R, 1024) layout, both
+// 16-byte aligned), its four values stored as one float4; the clip's bias,
+// log2f(alpha), once a thread on the column and once for each run of
+// bitwise-equal alphas on the (R, 1024) layout (the first port took it, and
+// loaded alpha, at every element); the row max by warp shuffles, then the
+// eight warp maxima (reduce.cuh, block_max_shfl: exact in any order, one
+// barrier), in place of the first port's eight-barrier shared tree. The
+// template parameters name the layout and the rounding in a profile
+// (fake_quant_amax_kernel<COL, RAND>). The uniform is made in registers, so
+// no random operand is read.
 #include "reduce.cuh"
 
 // One element: clip, exponent clamped at its largest code, round (to
@@ -112,28 +120,60 @@ __global__ void fake_quant_many_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void fake_quant_amax_kernel(const float* __restrict__ x,
-                                       const float* __restrict__ a2,
-                                       int a_cols,
-                                       const uint32_t* __restrict__ key,
-                                       float* __restrict__ out,
-                                       float* __restrict__ rowmax,
-                                       fp8::Fmt f) {
-  __shared__ float sh[fp8::kThreads];
+// x: the (R, 1024) plane (16-byte aligned); a: its alphas, (R, 1) (COL) or
+// (R, 1024) (16-byte aligned); key: 2 u32 (RAND); out: (R, 1024) f32;
+// rowmax: (R,) f32. One block a row, one float4 of x a thread.
+template <bool COL, bool RAND>
+__global__ void __launch_bounds__(fp8::kThreads) fake_quant_amax_kernel(
+    const float* __restrict__ x, const float* __restrict__ a,
+    const uint32_t* __restrict__ key, float* __restrict__ out,
+    float* __restrict__ rowmax, fp8::Fmt f) {
+  static_assert(fp8::kLane == 4 * fp8::kThreads, "one float4 a thread covers a row");
+  __shared__ float sh[fp8::kThreads / 32];
   const long long r = blockIdx.x;
-  const bool stochastic = key != nullptr;
-  const uint32_t k0 = stochastic ? key[0] : 0u;
-  const uint32_t k1 = stochastic ? key[1] : 0u;
-  float mx = 0.0f;
-  for (int c = threadIdx.x; c < fp8::kLane; c += blockDim.x) {
-    const long long e = r * fp8::kLane + c;
-    const float xe = x[e];
-    mx = fmaxf(mx, fabsf(xe));
-    const float a = a2[a_cols == 1 ? r : e];
-    out[e] = fake_quant_elem_b(xe, a, fp8::bias(a, f), f, stochastic, (uint32_t)e, k0, k1);
+  const long long e0 = r * fp8::kLane + 4 * (long long)threadIdx.x;   // the thread's first element
+  const float4 t = *reinterpret_cast<const float4*>(x + e0);
+  const float xs[4] = {t.x, t.y, t.z, t.w};
+  const uint32_t k0 = RAND ? key[0] : 0u;
+  const uint32_t k1 = RAND ? key[1] : 0u;
+  float q[4];
+  if constexpr (COL) {
+    const float av = a[r];
+    const float b = fp8::bias(av, f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = fake_quant_elem_b(xs[j], av, b, f, RAND, (uint32_t)(e0 + j), k0, k1);
+  } else {
+    const float4 at = *reinterpret_cast<const float4*>(a + e0);
+    const float as[4] = {at.x, at.y, at.z, at.w};
+    float av = as[0];
+    float b = fp8::bias(av, f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j > 0 && __float_as_uint(as[j]) != __float_as_uint(av)) {
+        av = as[j];
+        b = fp8::bias(av, f);
+      }
+      q[j] = fake_quant_elem_b(xs[j], av, b, f, RAND, (uint32_t)(e0 + j), k0, k1);
+    }
   }
-  const float m = fp8::block_max(mx, sh);
+  *reinterpret_cast<float4*>(out + e0) = make_float4(q[0], q[1], q[2], q[3]);
+  const float mx = fmaxf(fmaxf(fabsf(xs[0]), fabsf(xs[1])), fmaxf(fabsf(xs[2]), fabsf(xs[3])));
+  const float m = fp8::block_max_shfl(mx, sh);
   if (threadIdx.x == 0) rowmax[r] = m;
+}
+
+template <bool COL>
+static void launch_fake_quant_amax(const float* x, const float* a, const uint32_t* key,
+                                   float* out, float* rowmax, long long rows,
+                                   const fp8::Fmt& f, cudaStream_t stream) {
+  if (key != nullptr) {
+    fake_quant_amax_kernel<COL, true><<<(unsigned)rows, fp8::kThreads, 0, stream>>>(
+        x, a, key, out, rowmax, f);
+  } else {
+    fake_quant_amax_kernel<COL, false><<<(unsigned)rows, fp8::kThreads, 0, stream>>>(
+        x, a, key, out, rowmax, f);
+  }
 }
 
 // ``g`` clip slices of the n-element plane x (n a multiple of 1024), keys
@@ -163,6 +203,9 @@ extern "C" int repro_fake_quant_many(const float* x, const float* a3, int a_cols
   return (int)cudaGetLastError();
 }
 
+// ``rows`` rows of x (16-byte aligned), alphas (rows, a_cols) with a_cols 1
+// or 1024 (then 16-byte aligned too), key 2 u32 or null (det); out (rows,
+// 1024), rowmax (rows,).
 extern "C" int repro_fake_quant_amax_tiles(const float* x, const float* a2,
                                            int a_cols, const uint32_t* key,
                                            float* out, float* rowmax,
@@ -170,8 +213,9 @@ extern "C" int repro_fake_quant_amax_tiles(const float* x, const float* a2,
                                            float mant_const,
                                            cudaStream_t stream) {
   if (rows <= 0) return 0;
+  if (rows > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   const fp8::Fmt f{exp, mant, mant_const};
-  fake_quant_amax_kernel<<<(unsigned)rows, fp8::kThreads, 0, stream>>>(
-      x, a2, a_cols, key, out, rowmax, f);
+  if (a_cols == 1) launch_fake_quant_amax<true>(x, a2, key, out, rowmax, rows, f, stream);
+  else launch_fake_quant_amax<false>(x, a2, key, out, rowmax, rows, f, stream);
   return (int)cudaGetLastError();
 }

@@ -40,18 +40,6 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
   return sh[0];
 }
 
-// The same fixed tree with fmaxf: exact in any order (the per-row amax of
-// fake_quant.cu).
-__device__ __forceinline__ float block_max(float v, float* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if ((int)threadIdx.x < w) sh[threadIdx.x] = fmaxf(sh[threadIdx.x], sh[threadIdx.x + w]);
-    __syncthreads();
-  }
-  return sh[0];
-}
-
 // Pass 2 in one block of kThreads: the per-block partials of pass 1 folded
 // into out[0], each thread's strided share then the fixed tree.
 __device__ __forceinline__ void fold_partials(const float* __restrict__ partial,
@@ -83,7 +71,8 @@ __device__ __forceinline__ float block_sum_shfl(float v, float* sh) {
 
 // The block's max of v: a shuffle max in each warp, then thread 0 over the
 // eight warp maxima; exact in any order, one barrier (the per-row amax of
-// quant_pack_amax.cu). Valid in thread 0. ``sh`` holds kThreads / 32 floats.
+// quant_pack_amax.cu and fake_quant.cu). Valid in thread 0. ``sh`` holds
+// kThreads / 32 floats.
 __device__ __forceinline__ float block_max_shfl(float v, float* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll

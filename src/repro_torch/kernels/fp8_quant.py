@@ -643,11 +643,16 @@ def fake_quant_amax_tiles(x2: torch.Tensor, a2: torch.Tensor,
                           key2: torch.Tensor | None = None,
                           fmt: FP8Format = E4M3):
     """:func:`fake_quant_tiles` and, from the same launch, the per-row max|x|
-    of the raw tiles: ``(q (R, 1024) f32, rowmax (R, 1) f32)``."""
+    of the raw tiles: ``(q (R, 1024) f32, rowmax (R, 1) f32)``. The kernel
+    loads x, and an ``(R, 1024)`` alpha, in 16-byte vectors: both must be
+    16-byte aligned."""
     if _on_cpu(x2, a2, key2):
         return ref.fake_quant_amax_tiles(x2, a2, key2, fmt)
     _check(x2, "x2", torch.float32)
     a_cols = _check_alpha_tiles(x2, a2)
+    _check_aligned(x2, "x2")
+    if a_cols == LANE:
+        _check_aligned(a2, "alpha")
     if key2 is not None:
         _check(key2, "key2", torch.uint32, (2,))
     rows = x2.shape[0]

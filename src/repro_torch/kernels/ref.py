@@ -84,6 +84,17 @@ def quant_det_bwd(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
     return gx.to(x.dtype), torch.sum(route)
 
 
+def quant_det_clip_f64(x: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
+                       fmt: FP8Format = E4M3) -> tuple[float, float]:
+    """``(clip64, mag)``: :func:`quant_det_bwd`'s ``g_alpha`` with its terms
+    (each the f64 product of ``g`` and the f32 route factor of ``_ste``)
+    summed in f64, and the sum of their absolute values."""
+    a = torch.clamp(alpha.to(torch.float32).reshape(()), min=_ALPHA_FLOOR)
+    xf = x.to(torch.float32)
+    terms = g.double() * _ste(xf, a, torch.ones_like(xf), fmt)[1].double()
+    return float(terms.sum()), float(terms.abs().sum())
+
+
 _TOP = 0x7F7FFFFF          # FLT_MAX's bit pattern
 _TAB_MAX, _THR_MAX = 40, 32   # csrc/fp8_common.cuh kTabMax, kThrMax
 

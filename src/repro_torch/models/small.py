@@ -1,12 +1,15 @@
 """The paper's own experiment models, the port of ``repro.models.small``.
 
-Ported: the MLP (test workhorse), LeNet with GroupNorm (the paper's CIFAR
-model) and the KWT-style tiny transformer (keyword spotting). Params and
+All five of the reference's models: the MLP (test workhorse), LeNet with
+GroupNorm (the paper's CIFAR model), the reduced ResNet with GroupNorm (the
+stand-in for the paper's ResNet18), the MatchboxNet-style 1-D separable conv
+net and the KWT-style tiny transformer (both keyword spotting). Params and
 layouts match the reference so weights carry across through
 ``convert.from_jax_params``: dense weights are ``(d_in, d_out)``, conv
-weights HWIO, activations NHWC at ``apply``'s boundary; convolutions permute
-to PyTorch's NCHW/OIHW internally. The ``_qa``/``_qb`` clipping values
-follow ``core.qat``.
+weights HWIO (1-D: WIO, depthwise ``(k, 1, C)``), activations NHWC (1-D:
+NWC) at ``apply``'s boundary; convolutions permute to PyTorch's NCHW/OIHW
+(NCW/OIW) internally and pad as XLA's ``"SAME"`` does. The ``_qa``/``_qb``
+clipping values follow ``core.qat``.
 
 ``init_*(seed, ..., device)`` draws from a ``torch.Generator`` on the CPU
 (reproducible across devices) and moves the params to ``device``;
@@ -69,13 +72,30 @@ def _dense(p, x, qcfg, sites: _Sites):
     return x @ wq(p["w"], p["w_qa"], qcfg, sites.next(p["w"].shape)) + p["b"]
 
 
-def _conv(p, x, qcfg, sites: _Sites):
-    """Stride-1 "SAME" conv of an NHWC activation with an HWIO kernel."""
+def _same_pad(n: int, k: int, s: int) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial axis of ``n`` at kernel ``k``
+    and stride ``s``: ``(lo, hi)``, the odd pixel at the end. A 3x3 stride-2
+    conv on 32 pixels pads (0, 1), not PyTorch's symmetric (1, 1), which
+    gives the same shape sampled one pixel off."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _conv(p, x, qcfg, sites: _Sites, stride=1):
+    """``"SAME"`` conv of an NHWC activation with an HWIO kernel."""
     x = aq(x, p["x_qb"], qcfg) if "x_qb" in p else x
     w = wq(p["w"], p["w_qa"], qcfg, sites.next(p["w"].shape))
-    kh, kw = w.shape[0], w.shape[1]
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 padding=(kh // 2, kw // 2))
+    (th, bh), (tw, bw) = (_same_pad(x.shape[1], w.shape[0], stride),
+                          _same_pad(x.shape[2], w.shape[1], stride))
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if stride != 1:
+        # oneDNN's CPU backward of a strided 1x1 conv on this channels-last
+        # view of x frees memory twice (torch 2.13); a dense x takes another route
+        xc = xc.contiguous()
+    if th == bh and tw == bw:
+        y = F.conv2d(xc, wc, stride=stride, padding=(th, tw))
+    else:
+        y = F.conv2d(F.pad(xc, (tw, bw, th, bh)), wc, stride=stride)
     return y.permute(0, 2, 3, 1) + p["b"]
 
 
@@ -157,6 +177,117 @@ def apply_lenet(params, x, qcfg: QATConfig, bits: BitsFn | None = None):
     h = torch.relu(_dense(params["fc1"], h, qcfg, sites))
     h = torch.relu(_dense(params["fc2"], h, qcfg, sites))
     return _dense(params["head"], h, qcfg, sites)
+
+
+# ---------------------------------------------------------------------------
+# Reduced ResNet (GroupNorm): the stand-in for the paper's ResNet18
+# ---------------------------------------------------------------------------
+
+
+def _block_init(g, cin, cout, stride):
+    p = {
+        "conv1": {**_conv_init(g, 3, 3, cin, cout), "x_qb": beta_init()},
+        "gn1": _gn_init(cout),
+        "conv2": {**_conv_init(g, 3, 3, cout, cout), "x_qb": beta_init()},
+        "gn2": _gn_init(cout),
+    }
+    if stride != 1 or cin != cout:
+        p["proj"] = {**_conv_init(g, 1, 1, cin, cout), "x_qb": beta_init()}
+    return p
+
+
+def init_resnet(seed=0, in_ch=3, n_classes=10, widths=(16, 32, 64), device="cuda"):
+    g = _generator(seed)
+    params = {
+        "stem": {**_conv_init(g, 3, 3, in_ch, widths[0]), "x_qb": beta_init()},
+        "gn0": _gn_init(widths[0]),
+    }
+    c = widths[0]
+    for i, w in enumerate(widths, start=1):
+        stride = 1 if w == widths[0] else 2
+        params[f"block{i}a"] = _block_init(g, c, w, stride)
+        params[f"block{i}b"] = _block_init(g, w, w, 1)
+        c = w
+    params["head"] = {**_dense_init(g, c, n_classes), "x_qb": beta_init()}
+    return _to(params, device)
+
+
+def _apply_block(p, x, qcfg, sites: _Sites):
+    # a block downsamples exactly when it has a projection shortcut (the
+    # widths grow monotonically); sites in the reference's order: conv1,
+    # conv2, then proj
+    stride = 2 if "proj" in p else 1
+    h = torch.relu(group_norm(p["gn1"], _conv(p["conv1"], x, qcfg, sites, stride)))
+    h = group_norm(p["gn2"], _conv(p["conv2"], h, qcfg, sites))
+    if "proj" in p:
+        x = _conv(p["proj"], x, qcfg, sites, stride)
+    return torch.relu(h + x)
+
+
+def apply_resnet(params, x, qcfg: QATConfig, bits: BitsFn | None = None):
+    # x: (B, 32, 32, C)
+    sites = _Sites(qcfg, bits)
+    h = torch.relu(group_norm(params["gn0"], _conv(params["stem"], x, qcfg, sites)))
+    i = 1
+    while f"block{i}a" in params:
+        h = _apply_block(params[f"block{i}a"], h, qcfg, sites)
+        h = _apply_block(params[f"block{i}b"], h, qcfg, sites)
+        i += 1
+    return _dense(params["head"], h.mean(dim=(1, 2)), qcfg, sites)
+
+
+# ---------------------------------------------------------------------------
+# MatchboxNet-style 1-D separable conv net (keyword spotting)
+# ---------------------------------------------------------------------------
+
+
+def _conv1d_init(g, k, cin, cout, depthwise=False):
+    if depthwise:
+        w = torch.randn((k, 1, cin), generator=g) * float(np.sqrt(2.0 / k))
+    else:
+        w = torch.randn((k, cin, cout), generator=g) * float(np.sqrt(2.0 / (k * cin)))
+    return {"w": w, "w_qa": alpha_like(w), "b": torch.zeros(cin if depthwise else cout)}
+
+
+def _conv1d(p, x, qcfg, sites: _Sites, depthwise=False):
+    """Stride-1 ``"SAME"`` conv of an NWC activation with a WIO kernel of odd
+    width k, padded ``k // 2`` at both ends; a depthwise ``(k, 1, C)`` kernel
+    convolves each channel alone."""
+    x = aq(x, p["x_qb"], qcfg) if "x_qb" in p else x
+    w = wq(p["w"], p["w_qa"], qcfg, sites.next(p["w"].shape))
+    k = w.shape[0]
+    assert k % 2 == 1, f"_conv1d takes an odd kernel width, got {k}"
+    groups = x.shape[-1] if depthwise else 1
+    y = F.conv1d(x.permute(0, 2, 1), w.permute(2, 1, 0), padding=k // 2, groups=groups)
+    return y.permute(0, 2, 1) + p["b"]
+
+
+def init_matchbox(seed=0, in_feats=64, channels=64, n_classes=35, blocks=3, device="cuda"):
+    g = _generator(seed)
+    params = {
+        "stem": {**_conv1d_init(g, 11, in_feats, channels), "x_qb": beta_init()},
+        "gn0": _gn_init(channels),
+    }
+    for i in range(blocks):
+        params[f"dw{i}"] = {**_conv1d_init(g, 13, channels, channels, depthwise=True),
+                            "x_qb": beta_init()}
+        params[f"pw{i}"] = {**_conv1d_init(g, 1, channels, channels), "x_qb": beta_init()}
+        params[f"gn{i + 1}"] = _gn_init(channels)
+    params["head"] = {**_dense_init(g, channels, n_classes), "x_qb": beta_init()}
+    return _to(params, device)
+
+
+def apply_matchbox(params, x, qcfg: QATConfig, bits: BitsFn | None = None):
+    # x: (B, T, F) mel-spectrogram-like features
+    sites = _Sites(qcfg, bits)
+    h = torch.relu(group_norm(params["gn0"], _conv1d(params["stem"], x, qcfg, sites)))
+    i = 0
+    while f"dw{i}" in params:
+        r = _conv1d(params[f"dw{i}"], h, qcfg, sites, depthwise=True)
+        r = _conv1d(params[f"pw{i}"], r, qcfg, sites)
+        h = torch.relu(group_norm(params[f"gn{i + 1}"], r + h))
+        i += 1
+    return _dense(params["head"], h.mean(dim=1), qcfg, sites)
 
 
 # ---------------------------------------------------------------------------
@@ -245,5 +376,7 @@ def make_loss(apply_fn):
 REGISTRY = {
     "mlp": (init_mlp, apply_mlp),
     "lenet": (init_lenet, apply_lenet),
+    "resnet": (init_resnet, apply_resnet),
+    "matchbox": (init_matchbox, apply_matchbox),
     "kwt": (init_kwt, apply_kwt),
 }

@@ -117,12 +117,11 @@ def test_quant_det_bwd_is_one_kernel_a_call(dev, dtype):
     fp8_quant.quant_det_bwd(x, a, g)    # the workspace is allocated before the profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _lead_in()
         for _ in range(3):
             fp8_quant.quant_det_bwd(x, a, g)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-               and "memset" not in e.key.lower() and "memcpy" not in e.key.lower()]
+    kernels = _cuda_kernels(prof)
     assert all("quant_det_bwd_kernel" in e.key for e in kernels), [e.key for e in kernels]
     assert sum(e.count for e in kernels) == 3
 
@@ -1282,19 +1281,49 @@ def test_quant_det_tiles_pair_bitwise_against_twins(dev, seg_rows):
                        fp8_quant.quant_det(x[:1].contiguous(), col[0, 0].contiguous()))
 
 
-@pytest.mark.parametrize("shape", [(135, 1024), (8191, 1024)])
+@pytest.mark.parametrize("shape", [(1, 1024), (135, 1024), (8191, 1024)])
 @pytest.mark.parametrize("alpha_layout", ["column", "full"])
 @pytest.mark.parametrize("stochastic", [False, True])
 def test_fake_quant_amax_bitwise_against_b5_and_amax(dev, shape, alpha_layout, stochastic):
     x = _randn(shape, 41, 0.2, dev)
+    x[-1, 517:] = 0.0                         # an odd leaf's tail: the row max is the head's
     a2 = x.abs().amax(dim=1, keepdim=True) * 0.9
     if alpha_layout == "full":
         a2 = a2.expand(shape).contiguous()
+        a2[:, ::7] *= 0.75                    # runs of equal alphas broken inside a float4
     k = _key(dev) if stochastic else None
+    before = fp8_quant.LAUNCHES["fake_quant_amax_tiles"]
     q, mx = fp8_quant.fake_quant_amax_tiles(x, a2, k)
+    assert fp8_quant.LAUNCHES["fake_quant_amax_tiles"] == before + 1
     assert torch.equal(q, fp8_quant.fake_quant_tiles(x, a2, k))
-    assert torch.equal(q, ref.fake_quant_amax_tiles(x, a2, k)[0])
+    rq, rmx = ref.fake_quant_amax_tiles(x, a2, k)
+    assert torch.equal(q, rq) and torch.equal(mx, rmx)
     assert torch.equal(mx, torch.amax(x.abs(), 1, keepdim=True))
+    q2, mx2 = fp8_quant.fake_quant_amax_tiles(x, a2, k)
+    assert torch.equal(q2, q) and torch.equal(mx2, mx)
+
+
+def test_fake_quant_amax_rejects_misaligned_operands(dev):
+    """B9 loads x and an (R, 1024) alpha in 16-byte vectors: a view off a
+    16-byte boundary is refused, as the amax encodes refuse it; the (R, 1)
+    column is read a float a row and may lie anywhere."""
+    x = _randn((4, 1024), 42, 0.2, dev)
+    col = x.abs().amax(dim=1, keepdim=True)
+    off = _randn((4 * 1024 + 1,), 43, 0.2, dev)[1:].view(4, 1024)
+    with pytest.raises(ValueError, match="x2: must be 16-byte aligned"):
+        fp8_quant.fake_quant_amax_tiles(off, col)
+    a_off = torch.empty(4 * 1024 + 1, device=dev)[1:].view(4, 1024)
+    a_off.copy_(col.expand(4, 1024))
+    with pytest.raises(ValueError, match="alpha: must be 16-byte aligned"):
+        fp8_quant.fake_quant_amax_tiles(x, a_off)
+    q, mx = fp8_quant.fake_quant_amax_tiles(x, a_off.contiguous().clone())
+    assert torch.equal(q, ref.fake_quant_amax_tiles(x, col)[0])
+    col_off = torch.zeros(5, 1, device=dev)[1:]
+    col_off.copy_(col)
+    assert col_off.data_ptr() % 16
+    q, mx = fp8_quant.fake_quant_amax_tiles(x, col_off)
+    rq, rmx = ref.fake_quant_amax_tiles(x, col)
+    assert torch.equal(q, rq) and torch.equal(mx, rmx)
 
 
 def test_trainer_wrappers_validate_inputs(dev):

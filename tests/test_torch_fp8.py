@@ -95,6 +95,24 @@ def test_quant_det_bwd_twin_matches_reference(shape):
     np.testing.assert_allclose(float(tga), float(rga), rtol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(64, 64), (8, 128, 96)])
+def test_quant_det_clip_f64_sums_b2s_cotangent_terms(shape):
+    """``ref.quant_det_clip_f64``: B2's g_alpha with its terms summed in f64,
+    and their magnitude sum. On a cotangent of random sign the terms cancel;
+    the reference's f32 g_alpha (its interpret kernel) and the twin's then
+    both lie within 2^-20 of the magnitude sum from the f64 sum."""
+    x, g = _x(shape, 3), _x(shape, 4, 1.0)
+    a = np.float32(np.abs(x).max() * 0.8)
+    _, rga = r_kern.quant_det_bwd(jnp.asarray(x), jnp.asarray(a), jnp.asarray(g),
+                                  interpret=True)
+    _, tga = t_ref.quant_det_bwd(_t(x), torch.tensor(a), _t(g))
+    clip64, mag = t_ref.quant_det_clip_f64(_t(x), torch.tensor(a), _t(g))
+    assert mag > 10 * abs(clip64)                       # the terms cancel
+    for v in (float(rga), float(tga)):
+        assert abs(v - clip64) <= t_ref.BAR_FLOOR * mag
+    assert t_ref.clip_within_bar(float(tga), clip64, mag)[0]
+
+
 @pytest.mark.parametrize("mode", ["det", "rand"])
 @pytest.mark.parametrize("alpha_layout", ["column", "full"])
 def test_quant_pack_tiles_twin_matches_reference(mode, alpha_layout):
